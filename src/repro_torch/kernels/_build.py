@@ -1,0 +1,162 @@
+"""Build and load the port's CUDA kernels at first use.
+
+Every source under `csrc/` is compiled by `nvcc` into its own shared
+library with a plain C interface and loaded with `ctypes`; the wrappers in
+the kernel modules pass raw device pointers and PyTorch's current stream.
+All sources compile in parallel (one `nvcc` each), for `sm_90a` (Hopper),
+into `build/` beside this file, which `.gitignore` lists. A library is named
+after a hash of its sources and flags, so an edit rebuilds it and an
+unchanged tree reuses it.
+
+Nothing here runs at import time: the CPU tests import every module, and
+the build needs `nvcc`, which only a GPU host has.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+SOURCES = ("fused_obj", "pso_step", "direction", "bfgs_update")
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    # no FMA contraction: the fused objective's value-only and value+grad
+    # instantiations must round f identically, and the elementwise kernels
+    # then match their plain PyTorch versions bit for bit
+    "-fmad=false",
+    "-Xptxas=-v",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of each library's launch function (all return cudaError_t).
+SIGNATURES = {
+    "fused_obj": ("fused_obj_launch", [_I, _I, _P, _P, _P, _I, _I, _P]),
+    "pso_step": ("pso_step_launch",
+                 [_P, _P, _P, _P, _P, _P, _F, _F, _F, _P, _P, _I, _I, _P]),
+    "direction": ("direction_launch", [_P, _P, _P, _I, _I, _P]),
+    "bfgs_update": ("guarded_update_direction_launch",
+                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
+}
+
+# ptxas/nvcc output of the last build in this process, by source
+BUILD_LOG: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda/bin): the CUDA "
+            "kernels build on the GPU host at first use")
+    return str(path)
+
+
+def _library_path(stem: str) -> Path:
+    h = hashlib.sha256()
+    for part in (CSRC / f"{stem}.cu", CSRC / "common.cuh"):
+        h.update(part.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every library that is not built yet, all `nvcc`s at once.
+    Returns the wall seconds spent; raises with the compiler's output on
+    any failure."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for stem in SOURCES:
+        target = _library_path(stem)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp),
+               str(CSRC / f"{stem}.cu")]
+        procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    failed = []
+    for stem, (proc, tmp, target) in procs.items():
+        out, _ = proc.communicate()
+        BUILD_LOG[stem] = out
+        if proc.returncode != 0:
+            failed.append(f"--- {stem}.cu (nvcc exit {proc.returncode})\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, target)  # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<stem>.cu, built first if needed."""
+    path = _library_path(stem)
+    if not path.exists():
+        build_all()
+    lib = ctypes.CDLL(str(path))
+    name, argtypes = SIGNATURES[stem]
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_tensor(op: str, arg: str, t, shape, device=None) -> None:
+    """Raise unless `t` is a contiguous float32 CUDA tensor of `shape` (on
+    `device` when given): the kernels take nothing else."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{op}: {arg} must be a CUDA tensor")
+    if device is not None and t.device != device:
+        raise ValueError(f"{op}: {arg} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{op}: {arg} must be float32 (got {t.dtype})")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{op}: {arg} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{op}: {arg} must be contiguous")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t) -> ctypes.c_void_p:
+    """PyTorch's current stream on `t`'s device, for a launch."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def launch(stem: str, *args) -> None:
+    """Call csrc/<stem>.cu's launch function; raise if CUDA refused it."""
+    lib = library(stem)
+    code = getattr(lib, SIGNATURES[stem][0])(*args)
+    if code != 0:
+        msg = lib.repro_error_string(code).decode()
+        raise RuntimeError(f"{stem} kernel launch failed: CUDA error {code} ({msg})")

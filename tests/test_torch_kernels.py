@@ -1,0 +1,166 @@
+"""The port's kernel modules (plain PyTorch versions, the CPU path) against
+the JAX package's Pallas ops in interpret mode and its `kernels/ref.py`
+oracles, on identical numpy inputs.
+
+Tolerance: rtol 1e-5, atol 1e-6 — both sides compute in float32 and differ
+only in the order of their sums and in their libm. The CUDA kernels
+themselves run only on the card, where chip_smoke.py holds each against
+these plain versions.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import bfgs_update, direction, fused_obj, pso_step  # noqa: E402
+
+RTOL, ATOL = 1e-5, 1e-6
+N, D = 37, 7  # odd sizes: no tile or lane alignment to lean on
+BOX = {"sphere": 5.0, "rastrigin": 5.12, "rosenbrock": 2.0, "ackley": 32.768}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _x(name, seed=0, n=N, d=D):
+    b = BOX[name]
+    return _rng(seed).uniform(-b, b, (n, d)).astype(np.float32)
+
+
+def _close(port, jax_out, rtol=RTOL, atol=ATOL):
+    np.testing.assert_allclose(np.asarray(port), np.asarray(jax_out),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("name", fused_obj.FUSED_OBJECTIVES)
+class TestFusedObjective:
+    def test_value_grad_matches_pallas_and_ref(self, name):
+        x = _x(name)
+        f, g = ops.fused_value_grad(name, torch.from_numpy(x))
+        jf, jg = jops.fused_value_grad(name, jnp.asarray(x))
+        rf, rg = getattr(jref, f"{name}_vg_ref")(jnp.asarray(x))
+        _close(f, jf)
+        _close(g, jg)
+        _close(f, rf)
+        _close(g, rg)
+
+    def test_value_matches_pallas(self, name):
+        x = _x(name, seed=1)
+        _close(ops.fused_value(name, torch.from_numpy(x)),
+               jops.fused_value(name, jnp.asarray(x)))
+
+    def test_value_only_f_bitwise_equals_value_grad_f(self, name):
+        x = torch.from_numpy(_x(name, seed=2))
+        f_val = ops.fused_value(name, x)
+        f_vg, _ = ops.fused_value_grad(name, x)
+        assert torch.equal(f_val.view(torch.int32), f_vg.view(torch.int32))
+
+
+def test_ackley_gradient_is_nan_at_origin():
+    x = _x("ackley", seed=3)
+    x[4] = 0.0
+    f, g = ops.fused_value_grad("ackley", torch.from_numpy(x))
+    _, jg = jops.fused_value_grad("ackley", jnp.asarray(x))
+    assert torch.isfinite(f[4])
+    assert torch.isnan(g[4]).all() and np.isnan(np.asarray(jg)[4]).all()
+    assert torch.isfinite(g[np.arange(N) != 4]).all()
+
+
+def _update_inputs(seed=4, b=N, d=D, frozen_every=5):
+    rng = _rng(seed)
+    a = rng.normal(size=(b, d, d)) * 0.1
+    H = (np.eye(d) + 0.5 * (a + a.transpose(0, 2, 1))).astype(np.float32)
+    dx = rng.normal(size=(b, d)).astype(np.float32)
+    dg = (dx * rng.uniform(1.0, 2.0, (b, d))).astype(np.float32)
+    g_new = rng.normal(size=(b, d)).astype(np.float32)
+    rho = (1.0 / np.sum(dx * dg, axis=-1)).astype(np.float32)
+    frozen = (np.zeros(b, bool) if frozen_every is None
+              else np.arange(b) % frozen_every == 1)
+    rho[frozen] = 0.0
+    dx[frozen] = 0.0
+    dg[frozen] = 0.0
+    return H, dx, dg, g_new, rho, frozen
+
+
+def test_guarded_update_direction_matches_pallas_and_ref():
+    H, dx, dg, g_new, rho, frozen = _update_inputs()
+    Hn, p = ops.guarded_update_direction(
+        *(torch.from_numpy(a) for a in (H, dx, dg, g_new, rho)))
+    jH, jp = jops.guarded_update_direction(
+        *(jnp.asarray(a) for a in (H, dx, dg, g_new, rho)))
+    rH, rp = jref.guarded_update_direction_ref(
+        *(jnp.asarray(a) for a in (H, dx, dg, g_new, rho)))
+    _close(Hn, jH)
+    _close(p, jp)
+    _close(Hn, rH)
+    _close(p, rp)
+    # ρ = 0 with zeroed pairs: H' is H, bit for bit
+    assert torch.equal(Hn[frozen], torch.from_numpy(H[frozen]))
+
+
+def test_guarded_update_equals_unguarded_bfgs_update():
+    """The ρ-form equals the paper's literal triple product (ref oracle)."""
+    H, dx, dg, g_new, _, _ = _update_inputs(seed=5, frozen_every=None)
+    rho = (1.0 / np.sum(dx * dg, axis=-1)).astype(np.float32)
+    Hn, _ = ops.guarded_update_direction(
+        *(torch.from_numpy(a) for a in (H, dx, dg, g_new, rho)))
+    _close(Hn, jref.bfgs_update_ref(jnp.asarray(H), jnp.asarray(dx),
+                                    jnp.asarray(dg)), rtol=1e-4, atol=1e-5)
+
+
+def test_direction_matches_pallas_and_ref():
+    H, _, _, g, _, _ = _update_inputs(seed=6)
+    p = ops.direction(torch.from_numpy(H), torch.from_numpy(g))
+    _close(p, jops.direction(jnp.asarray(H), jnp.asarray(g)))
+    _close(p, jref.direction_ref(jnp.asarray(H), jnp.asarray(g)))
+
+
+def test_pso_step_matches_pallas_and_ref():
+    rng = _rng(7)
+    x, v, px = (rng.uniform(-5, 5, (N, D)).astype(np.float32) for _ in range(3))
+    gx = rng.uniform(-5, 5, (D,)).astype(np.float32)
+    r1, r2 = (rng.uniform(0, 1, (N, D)).astype(np.float32) for _ in range(2))
+    args = (x, v, px, gx, r1, r2)
+    xn, vn = ops.pso_step_update(*(torch.from_numpy(a) for a in args), 0.5, 1.2, 1.5)
+    jx, jv = jops.pso_step_update(*(jnp.asarray(a) for a in args), 0.5, 1.2, 1.5)
+    rx, rv = jref.pso_step_ref(*(jnp.asarray(a) for a in args), 0.5, 1.2, 1.5)
+    for port, other in ((xn, jx), (vn, jv), (xn, rx), (vn, rv)):
+        _close(port, other)
+
+
+def test_cpu_tensors_never_count_launches():
+    ops.reset_launch_counts()
+    x = torch.from_numpy(_x("sphere"))
+    ops.fused_value("sphere", x)
+    ops.fused_value_grad("sphere", x)
+    assert set(ops.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("call", [
+    lambda: fused_obj.value_grad_cuda("sphere", torch.zeros(3, 2)),
+    lambda: direction.direction_cuda(torch.zeros(2, 3, 3), torch.zeros(2, 3)),
+    lambda: bfgs_update.guarded_update_direction_cuda(
+        torch.zeros(2, 3, 3), *(torch.zeros(2, 3) for _ in range(3)), torch.zeros(2)),
+    lambda: pso_step.pso_step_cuda(*(torch.zeros(2, 3) for _ in range(3)),
+                                   torch.zeros(3), torch.zeros(2, 3),
+                                   torch.zeros(2, 3), 0.5, 1.2, 1.5),
+])
+def test_kernel_wrappers_refuse_cpu_tensors(call):
+    """A kernel wrapper takes CUDA tensors only; the CPU path goes through
+    the ops' device dispatch to the plain versions, never by fallback."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call()
