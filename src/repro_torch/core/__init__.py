@@ -1,9 +1,17 @@
-"""ZEUS core on PyTorch: PSO + multistart dense BFGS on the batched sweep.
+"""ZEUS core on PyTorch: PSO or mean-field phase 1, multistart BFGS or
+L-BFGS on the batched or per-lane sweep, and the sequential baseline.
 
-Port of src/repro/core for the single-host main path (see the module
-docstrings for what each file covers and what is not ported yet).
+Port of src/repro/core for a single host (see the module docstrings for
+what each file covers and what is not ported yet).
 """
-from repro_torch.core.bfgs import BFGSOptions, BatchedDenseBFGS, make_bfgs_solver
+from repro_torch.core.bfgs import (
+    BatchedDenseBFGS,
+    BFGSOptions,
+    DenseBFGS,
+    batched_bfgs,
+    make_bfgs_solver,
+    serial_bfgs,
+)
 from repro_torch.core.clustering import (
     ConfidenceReport,
     cluster_solutions,
@@ -17,11 +25,22 @@ from repro_torch.core.engine import (
     BatchLanes,
     BFGSResult,
     EngineOptions,
+    Lane,
+    VmappedStrategy,
+    as_batched_strategy,
     batch_lanes_init,
     batch_lanes_step,
     get_solver,
+    lane_init,
+    lane_step,
     register_solver,
     run_multistart,
+)
+from repro_torch.core.lbfgs import LBFGS, LBFGSOptions, batched_lbfgs
+from repro_torch.core.meanfield import (
+    MeanFieldPSOOptions,
+    MeanFieldState,
+    run_meanfield_pso,
 )
 from repro_torch.core.objectives import (
     OBJECTIVES,
@@ -31,11 +50,19 @@ from repro_torch.core.objectives import (
     objective_name_of,
     register_batched_vg,
 )
-from repro_torch.core.pso import PSOOptions, SwarmState, TorchDraws, run_pso
+from repro_torch.core.pso import (
+    PSOOptions,
+    SwarmState,
+    TorchDraws,
+    run_pso,
+    sequential_pso,
+)
 from repro_torch.core.zeus import (
+    SequentialZeusResult,
     ZeusOptions,
     ZeusResult,
     phase2_setup,
+    sequential_zeus,
     solve_phase2,
     zeus,
 )

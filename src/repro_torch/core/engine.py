@@ -1,16 +1,34 @@
-"""Multistart quasi-Newton engine, batched sweep (paper Alg. 10).
+"""Multistart quasi-Newton engine (paper Alg. 10).
 
-Port of the batched-sweep subset of src/repro/core/engine.py. Phase 2 is B
+Port of src/repro/core/engine.py for a single host. Phase 2 is B
 independent quasi-Newton solves sharing one stop protocol: sweep while
 k < iter_max AND n_converged < required_c AND any lane active. Converged
 and failed lanes are frozen by masking.
 
-Each sweep works on whole (B, D) / (B, D, D) stacks (`batch_lanes_step`):
-  1. the descent safeguard (p ← −g where pᵀg ≥ 0);
-  2. one speculative K-rung Armijo ladder as a single (K·B, D) value call;
-  3. one batched value+grad at the accepted points;
-  4. the curvature guard (δxᵀδg finite and > 1e-10, lane active);
-  5. one fused guarded state update that also yields the next direction.
+What varies between solvers is a `DirectionStrategy` (dense BFGS in
+core/bfgs.py, L-BFGS in core/lbfgs.py). The reference writes it for one
+lane and vmaps it; here `jax.vmap` is written out, so every strategy works
+on a lane stack: its state is a tensor, or a NamedTuple of tensors, with a
+leading lane axis B.
+
+`EngineOptions.sweep_mode` selects how a sweep runs:
+  "per_lane" — the reference's vmapped scalar step (`lane_step`) over the
+      stack: p from the strategy, the sequential Armijo or Wolfe search
+      (each lane keeps its own backtracking depth), value and gradient by
+      automatic differentiation (`value_and_grad_fn`, never the fused
+      kernels), and the guarded state update, where guarded lanes take the
+      stand-in pair (1, …, 1) and keep their old state;
+  "batched" — whole (B, D) / (B, D, D) passes (`batch_lanes_step`):
+      1. the descent safeguard (p ← −g where pᵀg ≥ 0);
+      2. one speculative K-rung Armijo ladder as a single (K·B, D) value
+         call;
+      3. one batched value+grad at the accepted points (the fused kernels
+         for a named objective);
+      4. the curvature guard (δxᵀδg finite and > 1e-10, lane active);
+      5. one fused guarded state update that also yields the next
+         direction. A per-lane strategy runs here through
+         `as_batched_strategy`: dense BFGS has its own batch-level
+         strategy, any other gets `VmappedStrategy`.
 
 `run_multistart` is a host loop: `lax.while_loop` and `lax.map` become
 Python loops, and the two stop counts are read back to the host in one
@@ -23,10 +41,9 @@ chunks. Every evaluator on the path is row-independent, so a chunked solve
 is array-equal to the unchunked one.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-sweep_mode "per_lane" and "megakernel" (A7/A9); compact_every,
-repack_every, ladder_len > 0 and schedule != "static" (A8); linesearch
-"wolfe" (A7); retry_budget, checkpoint_every/checkpoint_dir and fault_plan
-(A11); auto_cost_model (A12).
+sweep_mode "megakernel" (A9); compact_every, repack_every, ladder_len > 0
+and schedule != "static" (A8); retry_budget, checkpoint_every/
+checkpoint_dir and fault_plan (A11); auto_cost_model (A12).
 """
 from __future__ import annotations
 
@@ -36,8 +53,17 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Protocol, Tuple
 import torch
 
 from repro_torch._device import check_dtype, resolve_device
-from repro_torch.core.linesearch import armijo_backtracking_batch
-from repro_torch.core.objectives import as_batched
+from repro_torch.core.dual import grad_eval_cost
+from repro_torch.core.linesearch import (
+    armijo_backtracking,
+    armijo_backtracking_batch,
+    wolfe_linesearch,
+)
+from repro_torch.core.objectives import (
+    BatchedObjective,
+    Objective,
+    as_batched,
+)
 
 # status codes, matching the paper's result.status
 DIVERGED = 0  # hit iter_max without |g| < theta (or NaN/Inf escape)
@@ -75,11 +101,11 @@ class EngineOptions:
     required_c: Optional[int] = None  # stop once this many lanes converged
     ls_iters: int = 20
     ls_c1: float = 0.3
-    linesearch: str = "armijo"  # "wolfe" is not ported yet (A7)
+    linesearch: str = "armijo"  # "armijo" (paper) | "wolfe" (per_lane only)
     ad_mode: str = "forward"  # "forward" (paper) | "reverse" (beyond-paper)
     lane_chunk: Optional[int] = None  # None = one monolithic batch
-    # "batched" only in this port ("per_lane" A7, "megakernel" A9). The JAX
-    # package defaults to "per_lane".
+    # "batched" | "per_lane" ("megakernel" is A9). The JAX package
+    # defaults to "per_lane"; the port keeps "batched", its kernels' path.
     sweep_mode: str = "batched"
     # not ported yet; any other than the default raises (ROADMAP item)
     compact_every: int = 0  # A8
@@ -93,29 +119,41 @@ class EngineOptions:
     fault_plan: Optional[Any] = None  # A11
 
 
+_SCHEDULE_KNOBS = ("compact_every", "repack_every", "ladder_len")
+
+
 def check_engine_options(opts: EngineOptions) -> None:
     """Raise on options this port does not run yet, naming their ROADMAP
     item, and on values the reference rejects too."""
-    if opts.sweep_mode in ("per_lane", "megakernel"):
-        item = "A7" if opts.sweep_mode == "per_lane" else "A9"
+    if opts.sweep_mode == "megakernel":
         raise NotImplementedError(
-            f"sweep_mode={opts.sweep_mode!r} is not ported yet (ROADMAP "
-            f"{item}); the port runs sweep_mode='batched'")
-    if opts.sweep_mode != "batched":
-        raise ValueError(f"unknown sweep_mode {opts.sweep_mode!r}")
-    if opts.linesearch == "wolfe":
-        raise NotImplementedError(
-            "linesearch='wolfe' is not ported yet (ROADMAP A7)")
-    if opts.linesearch != "armijo":
+            "sweep_mode='megakernel' is not ported yet (ROADMAP A9); the port "
+            "runs sweep_mode='batched' or 'per_lane'")
+    if opts.sweep_mode not in ("batched", "per_lane"):
+        raise ValueError(
+            f"unknown sweep_mode {opts.sweep_mode!r}; expected 'per_lane', "
+            "'batched' or 'megakernel'")
+    if opts.linesearch not in ("armijo", "wolfe"):
         raise ValueError(f"unknown linesearch {opts.linesearch!r}")
-    for field in ("compact_every", "repack_every", "ladder_len"):
+    if opts.sweep_mode == "batched" and opts.linesearch != "armijo":
+        raise ValueError(
+            "sweep_mode='batched' supports linesearch='armijo' only (got "
+            f"{opts.linesearch!r}); use sweep_mode='per_lane'")
+    for field in _SCHEDULE_KNOBS:
         value = getattr(opts, field)
         if value < 0:
             raise ValueError(f"{field} must be >= 0 (got {value})")
+        if value > 0 and opts.sweep_mode == "per_lane":
+            raise ValueError(
+                f"{field} > 0 requires sweep_mode='batched' (got 'per_lane')")
         if value > 0:
             raise NotImplementedError(
                 f"{field}={value} is not ported yet (ROADMAP A8)")
     if opts.schedule != "static":
+        if opts.sweep_mode == "per_lane":
+            raise ValueError(
+                f"schedule={opts.schedule!r} requires sweep_mode='batched' "
+                "(got 'per_lane')")
         raise NotImplementedError(
             f"schedule={opts.schedule!r} is not ported yet (ROADMAP A8)")
     if opts.auto_cost_model:
@@ -130,10 +168,142 @@ def check_engine_options(opts: EngineOptions) -> None:
         raise ValueError(f"unknown AD mode: {opts.ad_mode}")
 
 
+def _tree_where(mask: torch.Tensor, new, old):
+    """torch.where(mask, new, old) leaf by leaf over a tensor or a
+    NamedTuple of lane stacks, mask (B,) broadcast over trailing axes. A
+    select, never a multiply by the mask: failed lanes carry inf and NaN."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)),
+                           new, old)
+    return type(new)(*(_tree_where(mask, n, o) for n, o in zip(new, old)))
+
+
+# ---------------------------------------------------------------------------
+# Per-lane sweep path (sweep_mode="per_lane").
+# ---------------------------------------------------------------------------
+class DirectionStrategy(Protocol):
+    """How a solver produces search directions, on a lane stack: the state
+    is a tensor or a NamedTuple of tensors with a leading lane axis B (the
+    reference's per-lane pytree, stacked)."""
+
+    def init_state(self, X0: torch.Tensor) -> Any:
+        """Direction state stack for fresh starts X0 (B, D)."""
+        ...
+
+    def direction(self, state: Any, G: torch.Tensor) -> torch.Tensor:
+        """Directions P (B, D) from the state stack and gradients G."""
+        ...
+
+    def update_state(self, state: Any, dX: torch.Tensor, dG: torch.Tensor) -> Any:
+        """Absorb the secant pairs. The engine passes curvature-safe pairs or
+        the stand-in pair (1, …, 1), and discards the lanes it guarded."""
+        ...
+
+
+class Lane(NamedTuple):
+    """The per-lane path's lane stack: shared fields + the strategy's state."""
+
+    x: torch.Tensor  # (B, D)
+    f: torch.Tensor  # (B,)
+    g: torch.Tensor  # (B, D)
+    converged: torch.Tensor  # (B,) bool
+    failed: torch.Tensor  # (B,) bool (NaN/Inf escape)
+    n_evals: torch.Tensor  # (B,) int32 objective-eval counter
+    direction_state: Any
+
+
+def per_lane_objective(f, ad_mode: str = "forward") -> BatchedObjective:
+    """The per-lane path's evaluators: vmap(f) and vmap(value_and_grad_fn(f))
+    by automatic differentiation, never the fused kernels, as the
+    reference's per-lane path takes them."""
+    if isinstance(f, (Objective, BatchedObjective)):
+        f = f.fn
+    return BatchedObjective(f, name=None, ad_mode=ad_mode)
+
+
+def lane_init(vg_batch: Callable, strategy: DirectionStrategy, X0: torch.Tensor,
+              theta: float, ad_mode: str = "forward") -> Lane:
+    F, G = vg_batch(X0)
+    return Lane(
+        x=X0,
+        f=F,
+        g=G,
+        converged=torch.linalg.vector_norm(G, dim=-1) < theta,
+        failed=torch.logical_not(torch.isfinite(F)),
+        n_evals=torch.full(X0.shape[:1], grad_eval_cost(X0.shape[-1], ad_mode),
+                           dtype=torch.int32, device=X0.device),
+        direction_state=strategy.init_state(X0),
+    )
+
+
+def _update_where(strategy: DirectionStrategy, ds, dX, dG, ok: torch.Tensor):
+    """The strategy's update where `ok` (B,) holds, the old state elsewhere.
+    Lanes not ok get the stand-in pair (1, …, 1), so the update never
+    divides by zero or multiplies inf by 0 even where its result is
+    discarded."""
+    safe_dX = torch.where(ok[:, None], dX, torch.ones_like(dX))
+    safe_dG = torch.where(ok[:, None], dG, torch.ones_like(dG))
+    return _tree_where(ok, strategy.update_state(ds, safe_dX, safe_dG), ds)
+
+
+def _guarded_update(strategy: DirectionStrategy, ds, dX, dG, keep: torch.Tensor):
+    """Skip the update on curvature breakdown (δxᵀδg ≈ 0) to avoid NaNs.
+
+    The state advances only where the curvature is safe AND `keep` (B,)
+    holds: lane_step passes its active mask, which the reference applies in
+    a second select over the same state (one pass over a dense H stack
+    saved)."""
+    curv = torch.sum(dX * dG, dim=-1)
+    ok = torch.isfinite(curv) & (curv > _CURV_EPS)
+    return _update_where(strategy, ds, dX, dG, ok & keep)
+
+
+def lane_step(value_batch: Callable, vg_batch: Callable, strategy: DirectionStrategy,
+              opts: EngineOptions, lane: Lane) -> Lane:
+    """One quasi-Newton step of every lane (Alg. 4 lines 10-16), masked: a
+    converged or failed lane computes but keeps its old state."""
+    X, F, G = lane.x, lane.f, lane.g
+    active = torch.logical_not(torch.logical_or(lane.converged, lane.failed))
+
+    P = strategy.direction(lane.direction_state, G)
+    # descent safeguard: restart from steepest descent where p is not one
+    descent = torch.sum(P * G, dim=-1) < 0
+    P = torch.where(descent[:, None], P, -G)
+
+    if opts.linesearch == "armijo":
+        ls = armijo_backtracking(value_batch, X, P, F, G, c1=opts.ls_c1,
+                                 max_iters=opts.ls_iters)
+    else:
+        ls = wolfe_linesearch(vg_batch, X, P, F, G, max_iters=opts.ls_iters)
+
+    X_new = X + ls.alpha[:, None] * P
+    F_new, G_new = vg_batch(X_new)
+    state = _guarded_update(strategy, lane.direction_state, X_new - X, G_new - G,
+                            active)
+
+    now_converged = torch.linalg.vector_norm(G_new, dim=-1) < opts.theta
+    now_failed = torch.logical_not(
+        torch.isfinite(F_new) & torch.all(torch.isfinite(G_new), dim=-1))
+    return Lane(
+        x=_tree_where(active, X_new, X),
+        f=torch.where(active, F_new, F),
+        g=_tree_where(active, G_new, G),
+        converged=torch.where(active, now_converged, lane.converged),
+        failed=torch.where(active, now_failed, lane.failed),
+        n_evals=lane.n_evals + torch.where(
+            active, ls.n_evals + grad_eval_cost(X.shape[-1], opts.ad_mode),
+            0).to(torch.int32),
+        direction_state=state,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Batched sweep path (sweep_mode="batched").
+# ---------------------------------------------------------------------------
 class BatchedDirectionStrategy(Protocol):
-    """How a solver produces search directions for a whole lane stack. The
-    state is one tensor with a leading lane axis B (lane_chunk splits it
-    along that axis)."""
+    """How a solver produces search directions for the batched sweep. The
+    state is a tensor or a NamedTuple of tensors with a leading lane axis B
+    (lane_chunk splits it along that axis)."""
 
     def init_state_batch(self, X0: torch.Tensor) -> Any:
         ...
@@ -151,6 +321,38 @@ class BatchedDirectionStrategy(Protocol):
         ...
 
 
+class VmappedStrategy:
+    """Runs a per-lane DirectionStrategy in the batched sweep (the
+    reference vmaps the scalar strategy; the port's strategies already take
+    lane stacks): the update where `ok` holds, then the next directions
+    from the updated state."""
+
+    def __init__(self, strategy: DirectionStrategy):
+        self.strategy = strategy
+
+    def init_state_batch(self, X0):
+        return self.strategy.init_state(X0)
+
+    def direction_batch(self, state, G):
+        return self.strategy.direction(state, G)
+
+    def update_and_direction_batch(self, state, dX, dG, ok, G_new):
+        state = _update_where(self.strategy, state, dX, dG, ok)
+        return state, self.direction_batch(state, G_new)
+
+
+def as_batched_strategy(strategy) -> BatchedDirectionStrategy:
+    """The batch-level variant of a strategy: the strategy itself when it is
+    one already, its own `as_batched()` when it has one (dense BFGS), the
+    generic VmappedStrategy otherwise."""
+    if hasattr(strategy, "update_and_direction_batch"):
+        return strategy
+    factory = getattr(strategy, "as_batched", None)
+    if factory is not None:
+        return factory()
+    return VmappedStrategy(strategy)
+
+
 class BatchLanes(NamedTuple):
     """Whole-swarm state of the batched sweep. The next search direction P
     is carried across sweeps: the fused update emits (state', P') at once."""
@@ -162,7 +364,7 @@ class BatchLanes(NamedTuple):
     converged: torch.Tensor  # (B,) bool
     failed: torch.Tensor  # (B,) bool
     n_evals: torch.Tensor  # (B,) int32
-    direction_state: Any  # (B, D, D) inverse-Hessian stack for dense BFGS
+    direction_state: Any  # e.g. the (B, D, D) inverse-Hessian stack
 
 
 def batch_lanes_init(bobj, bstrategy: BatchedDirectionStrategy,
@@ -249,16 +451,19 @@ def _stop_counts(chunks) -> Tuple[int, int]:
 def run_multistart(
     f: Callable,
     x0,  # (B, D) starting points (the post-PSO swarm)
-    strategy: BatchedDirectionStrategy,
+    strategy,
     opts: EngineOptions = EngineOptions(),
     *,
     device="cuda",
 ) -> BFGSResult:
     """Run B independent quasi-Newton solves until required_c converge.
 
-    f:        objective (a named one routes through the fused kernels).
+    f:        objective (a named one routes through the fused kernels on
+              the batched sweep).
     x0:       (B, D) float32 starts, a tensor or array; moved to `device`.
-    strategy: a batched direction strategy (core/bfgs.BatchedDenseBFGS).
+    strategy: a per-lane DirectionStrategy (core/bfgs.DenseBFGS,
+              core/lbfgs.LBFGS) or, for sweep_mode="batched" only, a
+              batch-level one (core/bfgs.BatchedDenseBFGS).
     device:   "cuda" (default) or "cpu"; no silent CPU fallback."""
     check_engine_options(opts)
     dev = resolve_device(device)
@@ -268,14 +473,43 @@ def run_multistart(
     B, D = x0.shape
     required_c = opts.required_c if opts.required_c is not None else B
 
-    bobj = as_batched(f, ad_mode=opts.ad_mode)
-
     C = opts.lane_chunk if opts.lane_chunk is not None and 0 < opts.lane_chunk < B else B
     n_chunks = -(-B // C)
     pad = n_chunks * C - B
+
+    if opts.sweep_mode == "batched":
+        bobj = as_batched(f, ad_mode=opts.ad_mode)
+        bstrategy = as_batched_strategy(strategy)
+
+        def init_chunk(X):
+            return batch_lanes_init(bobj, bstrategy, X, opts.theta)
+
+        def step_chunk(lanes):
+            lanes, rows, _ = batch_lanes_step(bobj, bstrategy, opts, lanes)
+            return lanes, rows
+
+        eval_rows = n_chunks * C  # init: one value+grad row per lane
+    else:
+        if hasattr(strategy, "update_and_direction_batch"):
+            raise ValueError(
+                "sweep_mode='per_lane' needs a per-lane DirectionStrategy "
+                f"(got the batch-level {type(strategy).__name__})")
+        obj = per_lane_objective(f, opts.ad_mode)
+
+        def init_chunk(X):
+            return lane_init(obj.value_and_grad_batch, strategy, X, opts.theta,
+                             opts.ad_mode)
+
+        def step_chunk(lanes):
+            # rows are not instrumented on the per-lane path (as in the
+            # reference, eval_rows stays 0)
+            return lane_step(obj.value_batch, obj.value_and_grad_batch, strategy,
+                             opts, lanes), 0
+
+        eval_rows = 0
+
     X = torch.cat([x0, x0[:1].expand(pad, D)]) if pad else x0
-    chunks = [batch_lanes_init(bobj, strategy, X[i * C:(i + 1) * C], opts.theta)
-              for i in range(n_chunks)]
+    chunks = [init_chunk(X[i * C:(i + 1) * C]) for i in range(n_chunks)]
     if pad:
         # padding lanes (the tail of the last chunk) are frozen from birth:
         # never active, never counted
@@ -283,19 +517,18 @@ def run_multistart(
         is_pad = torch.arange(C, device=dev) >= C - pad
         chunks[-1] = last._replace(converged=last.converged & ~is_pad,
                                    failed=last.failed | is_pad)
-    eval_rows = n_chunks * C  # init: one value+grad row per lane
 
     k = 0
     n_conv, n_act = _stop_counts(chunks)
     while k < opts.iter_max and n_conv < required_c and n_act > 0:
         for i in range(n_chunks):
-            chunks[i], rows, _ = batch_lanes_step(bobj, strategy, opts, chunks[i])
+            chunks[i], rows = step_chunk(chunks[i])
             eval_rows += rows
         k += 1
         n_conv, n_act = _stop_counts(chunks)
 
-    # join the per-lane fields the result reports; the (B, D, D) direction
-    # state is dropped, never copied into one stack
+    # join the per-lane fields the result reports; the direction state is
+    # dropped, never copied into one stack
     def joined(field):
         parts = [getattr(ls, field) for ls in chunks]
         return (torch.cat(parts) if n_chunks > 1 else parts[0])[:B]
@@ -326,7 +559,7 @@ def run_multistart(
 # defaults) + a lane_chunk override to a ready (strategy, EngineOptions)
 # pair, so callers select solvers by name.
 # ---------------------------------------------------------------------------
-SolverFactory = Callable[..., Tuple[BatchedDirectionStrategy, EngineOptions]]
+SolverFactory = Callable[..., Tuple[DirectionStrategy, EngineOptions]]
 
 _SOLVERS: Dict[str, SolverFactory] = {}
 
@@ -343,13 +576,11 @@ def register_solver(name: str):
 
 
 def _ensure_builtin_solvers():
-    # importing the strategy module registers its factory
-    from repro_torch.core import bfgs  # noqa: F401
+    # importing the strategy modules registers their factories
+    from repro_torch.core import bfgs, lbfgs  # noqa: F401
 
 
 def get_solver(name: str) -> SolverFactory:
-    if name == "lbfgs":
-        raise NotImplementedError("solver='lbfgs' is not ported yet (ROADMAP A7)")
     if name not in _SOLVERS:
         _ensure_builtin_solvers()
     if name not in _SOLVERS:

@@ -1,9 +1,16 @@
-"""Speculative batched Armijo line search (paper §III-D, Alg. 6).
+"""Line searches (paper §III-D, Alg. 6).
 
-Port of the batched half of src/repro/core/linesearch.py: the full α ladder
-α₀·shrinkᵏ, k = 0..K-1, for all B lanes as ONE (K·B, D) value call, and the
-first accepted rung per lane. The adaptive ladder (`ladder_len > 0`) and
-the sequential and Wolfe searches of the per-lane path are not ported yet.
+Port of src/repro/core/linesearch.py:
+  - the speculative batched Armijo of the batched sweep: the full α ladder
+    α₀·shrinkᵏ, k = 0..K-1, for all B lanes as ONE (K·B, D) value call, and
+    the first accepted rung per lane;
+  - the sequential Armijo backtracking and the weak-Wolfe bisection of the
+    per-lane sweep. The reference writes each as a scalar `while_loop` that
+    `jax.vmap` runs over the lanes; here each is one loop over the whole
+    lane stack in which every lane keeps its own loop state, and a lane
+    that has finished keeps it while the others go on. The loop ends when
+    no lane continues or after `max_iters` rounds.
+The adaptive ladder (`ladder_len > 0`) is not ported yet (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -40,6 +47,97 @@ def armijo_thresholds(F0: torch.Tensor, ddir: torch.Tensor,
     in the reference's operation order: (c1·αₖ)·ddir, then + f₀. Eager
     torch materialises each op, so nothing re-fuses the chain."""
     return F0[None] + c1 * alphas[:, None] * ddir[None]
+
+
+class LineSearchResult(NamedTuple):
+    """Per-lane result of the sequential searches, each field (B,)."""
+
+    alpha: torch.Tensor  # accepted step sizes
+    # f at the accepted trial; when a lane's search exhausts unaccepted, the
+    # last *evaluated* trial (α/shrink for Armijo)
+    f_new: torch.Tensor
+    n_evals: torch.Tensor  # int32 objective evaluations consumed
+
+
+def armijo_backtracking(
+    value_batch: Callable,
+    X: torch.Tensor,  # (B, D)
+    P: torch.Tensor,  # (B, D)
+    F0: torch.Tensor,  # (B,)
+    G0: torch.Tensor,  # (B, D)
+    c1: float = 0.3,
+    alpha0: float = 1.0,
+    shrink: float = 0.5,
+    max_iters: int = 20,
+) -> LineSearchResult:
+    """Alg. 6 per lane: find α with f(x + αp) <= f0 + c1·α·g0ᵀp, halving α
+    after each rejected trial. Every round evaluates the whole stack in one
+    `value_batch` call (row-independent); only the searching lanes take the
+    result. n_evals is a lane's round count, as the reference reports."""
+    B = X.shape[0]
+    ddir = torch.sum(G0 * P, dim=-1)
+    i = torch.zeros((B,), dtype=torch.int32, device=X.device)
+    alpha = torch.full((B,), alpha0, dtype=X.dtype, device=X.device)
+    f1 = F0
+    done = torch.zeros((B,), dtype=torch.bool, device=X.device)
+    for _ in range(max_iters):
+        searching = ~done
+        if not bool(torch.any(searching)):
+            break
+        ft = value_batch(X + alpha[:, None] * P)
+        ok = ft <= F0 + c1 * alpha * ddir
+        next_alpha = torch.where(ok, alpha, alpha * shrink)
+        alpha = torch.where(searching, next_alpha, alpha)
+        f1 = torch.where(searching, ft, f1)
+        i = i + searching.to(torch.int32)
+        done = done | ok
+    return LineSearchResult(alpha=alpha, f_new=f1, n_evals=i)
+
+
+def wolfe_linesearch(
+    value_and_grad_batch: Callable,
+    X: torch.Tensor,  # (B, D)
+    P: torch.Tensor,  # (B, D)
+    F0: torch.Tensor,  # (B,)
+    G0: torch.Tensor,  # (B, D)
+    c1: float = 1e-4,
+    c2: float = 0.9,
+    alpha0: float = 1.0,
+    max_iters: int = 20,
+) -> LineSearchResult:
+    """Weak-Wolfe bisection per lane (Lewis & Overton style): keep a
+    bracket [lo, hi], expand while Armijo holds but curvature fails,
+    bisect when Armijo fails. Each round takes value and gradient of the
+    whole stack. n_evals is a lane's round count plus one, as the reference
+    reports."""
+    B = X.shape[0]
+    ddir = torch.sum(G0 * P, dim=-1)
+    i = torch.zeros((B,), dtype=torch.int32, device=X.device)
+    lo = torch.zeros((B,), dtype=X.dtype, device=X.device)
+    hi = torch.full((B,), float("inf"), dtype=X.dtype, device=X.device)
+    alpha = torch.full((B,), alpha0, dtype=X.dtype, device=X.device)
+    f1 = F0
+    done = torch.zeros((B,), dtype=torch.bool, device=X.device)
+    for _ in range(max_iters):
+        searching = ~done
+        if not bool(torch.any(searching)):
+            break
+        ft, gt = value_and_grad_batch(X + alpha[:, None] * P)
+        armijo = ft <= F0 + c1 * alpha * ddir
+        curv = torch.sum(gt * P, dim=-1) >= c2 * ddir
+        ok = armijo & curv
+        new_hi = torch.where(armijo, hi, alpha)
+        new_lo = torch.where(armijo & ~curv, alpha, lo)
+        new_alpha = torch.where(
+            ok, alpha, torch.where(torch.isfinite(new_hi), 0.5 * (new_lo + new_hi),
+                                   2.0 * alpha))
+        lo = torch.where(searching, new_lo, lo)
+        hi = torch.where(searching, new_hi, hi)
+        alpha = torch.where(searching, new_alpha, alpha)
+        f1 = torch.where(searching, ft, f1)
+        i = i + searching.to(torch.int32)
+        done = done | ok
+    return LineSearchResult(alpha=alpha, f_new=f1, n_evals=i + 1)
 
 
 class BatchLineSearchResult(NamedTuple):

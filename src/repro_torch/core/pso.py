@@ -10,24 +10,42 @@ package's `use_kernel` switch has no counterpart.
 
 Randomness goes through a `draws` hook, `draws(shape, low, high) -> tensor`
 uniform in [low, high), called in a fixed order: x₀ and v₀ in init_swarm,
-then r1 and r2 in every step. The default, `TorchDraws`, uses a
-torch.Generator on the device. `jax.random` streams cannot be reproduced in
-torch, so parity tests pass a hook that replays the JAX draws.
+then r1 and r2 in every step; the mean-field swarm (core/meanfield.py) also
+takes standard-normal draws from `draws.normal(shape)`. The default,
+`TorchDraws`, uses a torch.Generator on the device. `jax.random` streams
+cannot be reproduced in torch, so parity tests pass a hook that replays the
+JAX draws.
+
+`sequential_pso` is the paper's particle-by-particle baseline (Fig. 2): a
+host loop over numpy, seeded with an integer, that reproduces the
+reference's numpy draws exactly.
 
 Paper hyperparameters: w=0.5, c1=1.2, c2=1.5 (Deboucha et al. 2020).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Protocol, Sequence
 
+import numpy as np
 import torch
 from torch.func import vmap
 
 from repro_torch._device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 
-Draws = Callable[[Sequence[int], float, float], torch.Tensor]
+
+
+class Draws(Protocol):
+    """The random-draw hook (module docstring)."""
+
+    def __call__(self, shape: Sequence[int], low: float, high: float) -> torch.Tensor:
+        """Uniform float32 draws in [low, high)."""
+        ...
+
+    def normal(self, shape: Sequence[int]) -> torch.Tensor:
+        """Standard-normal float32 draws (the mean-field swarm only)."""
+        ...
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +82,10 @@ class TorchDraws:
         u = torch.rand(tuple(shape), generator=self.generator,
                        device=self.device, dtype=torch.float32)
         return low + (high - low) * u
+
+    def normal(self, shape) -> torch.Tensor:
+        return torch.randn(tuple(shape), generator=self.generator,
+                           device=self.device, dtype=torch.float32)
 
 
 def _global_best(x, fvals, gx, gf):
@@ -124,3 +146,53 @@ def run_pso(f: Callable, dim: int, lower: float, upper: float,
     for _ in range(opts.iter_pso):
         state = pso_step(f, state, opts, draws, lower, upper)
     return state
+
+
+def sequential_pso(f: Callable, seed: int, dim: int, lower: float, upper: float,
+                   opts: PSOOptions, *, device="cuda") -> SwarmState:
+    """Algs. 2/3 run particle by particle on the host (the Fig. 2 baseline).
+
+    The global best propagates within an iteration (particle i+1 sees
+    particle i's update), unlike the bulk-synchronous run_pso, so the two
+    are comparable only statistically.
+
+    seed: the integer the reference folds its key into
+          (`int(jax.random.randint(key, (), 0, 2**31 - 1))`); the numpy
+          draws are then the reference's, in the same order.
+    f:    scalar objective `(dim,) -> ()`, called one particle at a time on
+          a float32 tensor on `device` (the reference's positions are
+          float64 numpy that f sees as float32).
+    Returns the SwarmState as float32 tensors on `device`. clip_to_range is
+    a parallel-path knob and ignored, as in the reference."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+
+    def fval(xi):
+        return float(f(torch.as_tensor(xi, dtype=torch.float32, device=dev)))
+
+    n = opts.n_particles
+    vel_range = upper - lower
+    x = rng.uniform(lower, upper, (n, dim))
+    v = rng.uniform(-vel_range, vel_range, (n, dim))
+    px = x.copy()
+    pf = np.array([fval(x[i]) for i in range(n)])
+    gi = int(np.argmin(pf))
+    gx, gf = px[gi].copy(), float(pf[gi])
+
+    for _ in range(opts.iter_pso):
+        for i in range(n):
+            r1, r2 = rng.uniform(size=dim), rng.uniform(size=dim)
+            v[i] = (opts.w * v[i] + opts.c1 * r1 * (px[i] - x[i])
+                    + opts.c2 * r2 * (gx - x[i]))
+            x[i] = x[i] + v[i]
+            fv = fval(x[i])
+            if fv < pf[i]:
+                pf[i], px[i] = fv, x[i]
+            if fv < gf:
+                gf, gx = fv, x[i].copy()
+
+    def out(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+    return SwarmState(x=out(x), v=out(v), px=out(px), pf=out(pf), gx=out(gx),
+                      gf=out(gf))

@@ -1,30 +1,35 @@
-"""The ZEUS entry point (paper Alg. 7): PSO, then multistart BFGS, then the
-best converged lane.
+"""The ZEUS entry points (paper Alg. 1 sequential / Alg. 7 parallel).
 
 Port of src/repro/core/zeus.py for a single host. Phase 1 is the paper's
-PSO (core/pso.py), or uniform starts with use_pso=False; phase 2 runs the
-engine's batched sweep (core/engine.py) with the solver chosen by name;
-the finale picks the best converged lane, and core/clustering.py groups
-the lanes into basins.
+PSO (core/pso.py), the mean-field consensus swarm (phase1="meanfield",
+core/meanfield.py), or uniform starts with use_pso=False; phase 2 runs the
+engine (core/engine.py) with the solver chosen by name ("bfgs" or
+"lbfgs"); the finale picks the best converged lane, and
+core/clustering.py groups the lanes into basins. `sequential_zeus` is the
+paper's Alg. 1 baseline: sequential PSO, then one serial BFGS solve per
+start on the host, until required_c have converged.
 
 Randomness comes from a `draws` hook (core/pso.py) instead of a JAX key:
-by default a torch.Generator on the device. Not ported yet: phase1=
-"meanfield" (A10), solver="lbfgs" (A7), `resume` (A11), and the sequential
-Alg. 1 baseline `sequential_zeus` (A7).
+by default a torch.Generator on the device; `sequential_zeus` takes the
+integer its reference folds the key into. Not ported yet: `resume` (A11).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch._device import check_dtype, resolve_device
 from repro_torch.core import engine as engine_mod
-from repro_torch.core.bfgs import BFGSOptions, BFGSResult
-from repro_torch.core.engine import get_solver, run_multistart
-from repro_torch.core.pso import Draws, PSOOptions, TorchDraws, run_pso
+from repro_torch.core.bfgs import BFGSOptions, BFGSResult, serial_bfgs
+from repro_torch.core.engine import CONVERGED, get_solver, run_multistart
+from repro_torch.core.lbfgs import LBFGSOptions
+from repro_torch.core.meanfield import MeanFieldPSOOptions, run_meanfield_pso
+from repro_torch.core.pso import Draws, PSOOptions, TorchDraws, run_pso, sequential_pso
 
 PHASE1_STRATEGIES = ("pso", "meanfield")
 
@@ -33,8 +38,13 @@ PHASE1_STRATEGIES = ("pso", "meanfield")
 class ZeusOptions:
     pso: PSOOptions = PSOOptions()
     bfgs: BFGSOptions = BFGSOptions()
+    lbfgs: Optional[LBFGSOptions] = None  # set => solver="lbfgs"
     use_pso: bool = True
-    phase1: str = "pso"  # "meanfield" is not ported yet (A10)
+    # phase-1 strategy: "pso" (paper, per-particle bests) or "meanfield"
+    # (softmax-consensus swarm, configured by `meanfield`); use_pso=False
+    # skips phase 1 whichever is chosen
+    phase1: str = "pso"
+    meanfield: MeanFieldPSOOptions = MeanFieldPSOOptions()
     dtype: str = "float32"  # the only dtype the port supports
     solver: str = "bfgs"  # phase-2 strategy name in the engine registry
     lane_chunk: Optional[int] = None  # overrides the solver opts' lane_chunk
@@ -71,27 +81,62 @@ def uniform_starts(draws: Draws, n: int, dim: int, lower: float, upper: float,
                                 device=starts.device)
 
 
+def phase1_particles(opts: ZeusOptions) -> int:
+    """Lane count phase 2 receives: the active phase-1 strategy's swarm size
+    (use_pso=False draws the same count uniformly)."""
+    if opts.phase1 == "meanfield":
+        return opts.meanfield.n_particles
+    return opts.pso.n_particles
+
+
 def run_phase1(f, dim, lower, upper, opts: ZeusOptions, draws: Draws, device):
     """Phase 1: returns (starts, best_f_seen) for phase 2."""
     if opts.phase1 not in PHASE1_STRATEGIES:
         raise ValueError(
             f"unknown phase1 strategy {opts.phase1!r}; expected one of "
             f"{PHASE1_STRATEGIES}")
-    if opts.phase1 == "meanfield":
-        raise NotImplementedError(
-            "phase1='meanfield' is not ported yet (ROADMAP A10)")
     if not opts.use_pso:
-        return uniform_starts(draws, opts.pso.n_particles, dim, lower, upper,
+        return uniform_starts(draws, phase1_particles(opts), dim, lower, upper,
                               device)
+    if opts.phase1 == "meanfield":
+        mf = run_meanfield_pso(f, dim, lower, upper, opts.meanfield,
+                               device=device, draws=draws)
+        return mf.x, mf.gf
     swarm = run_pso(f, dim, lower, upper, opts.pso, device=device, draws=draws)
     return swarm.x, swarm.gf
+
+
+def _solver_name(opts: ZeusOptions) -> str:
+    # setting opts.lbfgs selects L-BFGS, as in the reference
+    if opts.lbfgs is not None and opts.solver == "bfgs":
+        return "lbfgs"
+    return opts.solver
+
+
+def _lbfgs_from_bfgs(b: BFGSOptions) -> LBFGSOptions:
+    """solver="lbfgs" by name alone: the shared engine knobs come from the
+    BFGS options; memory, ls_c1 and ad_mode keep their L-BFGS defaults."""
+    return LBFGSOptions(
+        iter_max=b.iter_bfgs, theta=b.theta, required_c=b.required_c,
+        ls_iters=b.ls_iters, linesearch=b.linesearch, lane_chunk=b.lane_chunk,
+        sweep_mode=b.sweep_mode, compact_every=b.compact_every,
+        repack_every=b.repack_every, ladder_len=b.ladder_len, schedule=b.schedule,
+        auto_cost_model=b.auto_cost_model, retry_budget=b.retry_budget,
+        checkpoint_every=b.checkpoint_every, checkpoint_dir=b.checkpoint_dir,
+        fault_plan=b.fault_plan)
 
 
 def phase2_setup(opts: ZeusOptions):
     """Resolve the phase-2 (strategy, EngineOptions) pair: registry lookup
     plus the ZeusOptions-level overrides."""
-    factory = get_solver(opts.solver)
-    solver_opts = opts.bfgs if opts.solver == "bfgs" else None
+    name = _solver_name(opts)
+    factory = get_solver(name)
+    if name == "lbfgs":
+        solver_opts = opts.lbfgs if opts.lbfgs is not None else _lbfgs_from_bfgs(opts.bfgs)
+    elif name == "bfgs":
+        solver_opts = opts.bfgs
+    else:
+        solver_opts = None  # third-party registrations use their defaults
     strategy, eopts = factory(solver_opts, lane_chunk=opts.lane_chunk)
     for field in ("sweep_mode", "compact_every", "repack_every", "ladder_len",
                   "schedule", "auto_cost_model", "retry_budget",
@@ -168,3 +213,64 @@ def _warn_if_all_lanes_failed(res: BFGSResult, n_lanes: int):
             f"all {n_lanes} lanes ended failed (non-finite escape); best_x is "
             "the least-bad failed iterate — consider a different search box",
             RuntimeWarning, stacklevel=3)
+
+
+# ---------------------------------------------------------------------------
+# Sequential ZEUS (Alg. 1), the Fig. 2 baseline: serial BFGS lane by lane on
+# the host, stopping after required_c convergences (Alg. 1 lines 9-20).
+# ---------------------------------------------------------------------------
+class SequentialZeusResult(NamedTuple):
+    best_x: np.ndarray
+    best_f: float
+    n_converged: int
+    n_started: int
+    wall_time_s: float
+    n_failed: int = 0  # lanes that ended with a non-finite fval
+
+
+def sequential_zeus(f: Callable, seed: int, dim: int, lower: float, upper: float,
+                    opts: ZeusOptions = ZeusOptions(), *,
+                    device="cuda") -> SequentialZeusResult:
+    """seed is the integer the reference folds its key into
+    (`int(jax.random.randint(key, (), 0, 2**31 - 1))`): the swarm and the
+    starts are then the reference's. Each start is solved by serial_bfgs
+    with `opts.bfgs` (the ZeusOptions-level engine overrides do not apply,
+    as in the reference)."""
+    if opts.phase1 != "pso":
+        raise ValueError(
+            "sequential_zeus is the paper's Alg. 1 baseline and only runs "
+            f"phase1='pso'; use zeus() for phase1={opts.phase1!r}")
+    check_dtype(opts.dtype)
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    if opts.use_pso and opts.pso.iter_pso > 0:
+        swarm = sequential_pso(f, seed, dim, lower, upper, opts.pso, device=dev)
+        starts = swarm.x.cpu().numpy()
+    else:
+        rng = np.random.default_rng(seed)
+        starts = rng.uniform(lower, upper, (opts.pso.n_particles, dim))
+
+    required_c = opts.bfgs.required_c or len(starts)
+    # the incumbent is seeded from the first lane, so a caller always gets
+    # an array back, even when every lane ends non-finite
+    best_x, best_f, c = None, np.inf, 0
+    n_started = n_failed = 0
+    for x0 in starts:
+        n_started += 1
+        r = serial_bfgs(f, np.asarray(x0, np.float32), opts.bfgs, device=dev)
+        fv = float(r.fval)
+        if not np.isfinite(fv):
+            n_failed += 1
+        # NaN compares false both ways, so a finite lane must explicitly
+        # displace a non-finite incumbent
+        if (best_x is None or fv < best_f
+                or (np.isfinite(fv) and not np.isfinite(best_f))):
+            best_x, best_f = r.x.cpu().numpy(), fv
+        if r.status == CONVERGED:
+            c += 1
+            if c >= required_c:
+                break  # Alg. 1 line 17: stop once enough runs converged
+    return SequentialZeusResult(best_x=best_x, best_f=best_f, n_converged=c,
+                                n_started=n_started,
+                                wall_time_s=time.perf_counter() - t0,
+                                n_failed=n_failed)

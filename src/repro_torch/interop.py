@@ -2,10 +2,11 @@
 
 ZEUS holds no weights; what crosses between the two packages is solver
 state. Each `*_from_numpy` takes a NamedTuple or dict of numpy arrays (what
-`jax.device_get` returns for the reference's SwarmState, BatchLanes or
-BFGSResult) and builds the port's tensors on a given device;
-`result_to_numpy` goes the other way. Nothing here imports JAX: the parity
-tests use this module to start the port from the exact reference state.
+`jax.device_get` returns for the reference's SwarmState, BatchLanes, Lane
+stack, LBFGSMemory, MeanFieldState or BFGSResult) and builds the port's
+tensors on a given device; `result_to_numpy` and `state_to_numpy` go the
+other way. Nothing here imports JAX: the parity tests use this module to
+start the port from the exact reference state.
 """
 from __future__ import annotations
 
@@ -14,7 +15,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.engine import BatchLanes, BFGSResult
+from repro_torch.core.engine import BatchLanes, BFGSResult, Lane
+from repro_torch.core.lbfgs import LBFGSMemory
+from repro_torch.core.meanfield import MeanFieldState
 from repro_torch.core.pso import SwarmState
 
 
@@ -44,11 +47,54 @@ def swarm_state_from_numpy(state, device="cpu") -> SwarmState:
                         for k in SwarmState._fields))
 
 
+def _direction_state(ds, device):
+    """A stacked direction state: a dense (B, D, D) H stack or an
+    LBFGSMemory."""
+    if isinstance(ds, np.ndarray):
+        return _tensor(ds, device)
+    return lbfgs_memory_from_numpy(ds, device)
+
+
+def _lanes(cls, lanes, device):
+    out = {k: _tensor(_field(lanes, k), device)
+           for k in cls._fields if k != "direction_state"}
+    return cls(**out, direction_state=_direction_state(
+        _field(lanes, "direction_state"), device))
+
+
 def batch_lanes_from_numpy(lanes, device="cpu") -> BatchLanes:
-    """The reference BatchLanes, including the (B, D, D) H stack in
-    `direction_state`, as the port's."""
-    return BatchLanes(*(_tensor(_field(lanes, k), device)
-                        for k in BatchLanes._fields))
+    """The reference BatchLanes, with its direction state (the (B, D, D) H
+    stack or a stacked LBFGSMemory), as the port's."""
+    return _lanes(BatchLanes, lanes, device)
+
+
+def lane_from_numpy(lane, device="cpu") -> Lane:
+    """The reference's per-lane Lane stack (what jax.vmap of lane_init or
+    lane_step returns) as the port's."""
+    return _lanes(Lane, lane, device)
+
+
+def lbfgs_memory_from_numpy(mem, device="cpu") -> LBFGSMemory:
+    """A stacked reference LBFGSMemory (every field with a leading lane
+    axis, as jax.vmap builds it) as the port's."""
+    return LBFGSMemory(*(_tensor(_field(mem, k), device)
+                         for k in LBFGSMemory._fields))
+
+
+def meanfield_state_from_numpy(state, device="cpu") -> MeanFieldState:
+    """The reference MeanFieldState as the port's (its PRNG key is dropped)."""
+    return MeanFieldState(*(_tensor(_field(state, k), device)
+                            for k in MeanFieldState._fields))
+
+
+def state_to_numpy(state):
+    """Any of the port's states (a tensor, or a NamedTuple of tensors and
+    nested NamedTuples) with every tensor moved to a numpy array."""
+    if isinstance(state, torch.Tensor):
+        return state.detach().cpu().numpy()
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(state_to_numpy(v) for v in state))
+    return state
 
 
 def result_from_numpy(res, device="cpu") -> BFGSResult:
@@ -68,5 +114,4 @@ def result_from_numpy(res, device="cpu") -> BFGSResult:
 
 def result_to_numpy(res: BFGSResult) -> BFGSResult:
     """The port's BFGSResult with every tensor moved to a numpy array."""
-    return BFGSResult(*(v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                        else v for v in res))
+    return state_to_numpy(res)

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("fused_obj", "pso_step", "direction", "bfgs_update")
+SOURCES = ("fused_obj", "pso_step", "direction", "bfgs_update", "meanfield_step")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -45,14 +45,20 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signature of each library's launch function (all return cudaError_t).
+# Launch functions (all return cudaError_t): name -> (source stem, C
+# argument types).
 SIGNATURES = {
-    "fused_obj": ("fused_obj_launch", [_I, _I, _P, _P, _P, _I, _I, _P]),
-    "pso_step": ("pso_step_launch",
-                 [_P, _P, _P, _P, _P, _P, _F, _F, _F, _P, _P, _I, _I, _P]),
-    "direction": ("direction_launch", [_P, _P, _P, _I, _I, _P]),
-    "bfgs_update": ("guarded_update_direction_launch",
-                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "fused_obj_launch": ("fused_obj", [_I, _I, _P, _P, _P, _I, _I, _P]),
+    "pso_step_launch": ("pso_step",
+                        [_P, _P, _P, _P, _P, _P, _F, _F, _F, _P, _P, _I, _I, _P]),
+    "direction_launch": ("direction", [_P, _P, _P, _I, _I, _P]),
+    "guarded_update_direction_launch": ("bfgs_update",
+                                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "bfgs_update_launch": ("bfgs_update", [_P, _P, _P, _P, _I, _I, _P]),
+    "update_direction_launch": ("bfgs_update",
+                                [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "meanfield_step_launch": ("meanfield_step",
+                              [_P, _P, _P, _P, _F, _F, _F, _I, _P, _P, _I, _I, _P]),
 }
 
 # ptxas/nvcc output of the last build in this process, by source
@@ -119,10 +125,11 @@ def library(stem: str) -> ctypes.CDLL:
     if not path.exists():
         build_all()
     lib = ctypes.CDLL(str(path))
-    name, argtypes = SIGNATURES[stem]
-    fn = getattr(lib, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for name, (fn_stem, argtypes) in SIGNATURES.items():
+        if fn_stem == stem:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib
@@ -153,10 +160,11 @@ def stream(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def launch(stem: str, *args) -> None:
-    """Call csrc/<stem>.cu's launch function; raise if CUDA refused it."""
-    lib = library(stem)
-    code = getattr(lib, SIGNATURES[stem][0])(*args)
+def launch(name: str, *args) -> None:
+    """Call the launch function `name` (a key of SIGNATURES); raise if CUDA
+    refused the launch."""
+    lib = library(SIGNATURES[name][0])
+    code = getattr(lib, name)(*args)
     if code != 0:
         msg = lib.repro_error_string(code).decode()
-        raise RuntimeError(f"{stem} kernel launch failed: CUDA error {code} ({msg})")
+        raise RuntimeError(f"{name} failed: CUDA error {code} ({msg})")

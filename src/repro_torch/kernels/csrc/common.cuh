@@ -25,6 +25,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The same butterfly within aligned groups of `width` lanes (a power of two
+// up to 32): every lane ends with its group's sum. All 32 lanes must call
+// it, since the shuffles name the full warp.
+__device__ __forceinline__ float group_sum(float v, int width) {
+  for (int offset = width / 2; offset > 0; offset >>= 1) {
+    v += __shfl_xor_sync(kFullMask, v, offset);
+  }
+  return v;
+}
+
 }  // namespace repro
 
 extern "C" const char* repro_error_string(int code) {

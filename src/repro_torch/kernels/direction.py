@@ -23,6 +23,6 @@ def direction_cuda(H, g):
     _build.check_tensor("direction", "H", H, (B, D, D))
     _build.check_tensor("direction", "g", g, (B, D), H.device)
     p = torch.empty((B, D), dtype=H.dtype, device=H.device)
-    _build.launch("direction", _build.ptr(H), _build.ptr(g), _build.ptr(p), B, D,
-                  _build.stream(H))
+    _build.launch("direction_launch", _build.ptr(H), _build.ptr(g), _build.ptr(p),
+                  B, D, _build.stream(H))
     return p

@@ -88,7 +88,7 @@ def value_grad_cuda(name: str, x: torch.Tensor, with_grad: bool = True):
     N, D = x.shape
     f = torch.empty((N,), dtype=x.dtype, device=x.device)
     g = torch.empty((N, D), dtype=x.dtype, device=x.device) if with_grad else None
-    _build.launch("fused_obj", _KERNEL_ID[name], int(with_grad), _build.ptr(x),
-                  _build.ptr(f), _build.ptr(g) if with_grad else None,
-                  N, D, _build.stream(x))
+    _build.launch("fused_obj_launch", _KERNEL_ID[name], int(with_grad),
+                  _build.ptr(x), _build.ptr(f),
+                  _build.ptr(g) if with_grad else None, N, D, _build.stream(x))
     return f, g

@@ -1,11 +1,10 @@
 """Public kernel entry points of the port, dispatched by the tensor's device.
 
-Port of src/repro/kernels/ops.py for the four kernels of the main path.
-Each op takes its plain PyTorch version for a tensor on the CPU, and its
-hand-written CUDA kernel for a tensor on the card: there is no switch that
-sends a CUDA tensor to the plain version, and a kernel that cannot launch
-raises. Nothing is padded: the JAX ops pad D to the TPU's 128-lane tile,
-which a warp-per-row kernel does not need.
+Port of src/repro/kernels/ops.py. Each op takes its plain PyTorch version
+for a tensor on the CPU, and its hand-written CUDA kernel for a tensor on
+the card: there is no switch that sends a CUDA tensor to the plain
+version, and a kernel that cannot launch raises. Nothing is padded: the
+JAX ops pad D to the TPU's 128-lane tile, which these kernels do not need.
 
 Each op carries a plain integer counter, `<op>.launches`, that it raises by
 one where it launches its kernel and nowhere else, so a run can show that
@@ -15,8 +14,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import bfgs_update, direction as _direction
-from repro_torch.kernels import fused_obj, pso_step
+from repro_torch.kernels import bfgs_update as _bfgs_update
+from repro_torch.kernels import direction as _direction
+from repro_torch.kernels import fused_obj, meanfield_step, pso_step
 from repro_torch.kernels.fused_obj import FUSED_OBJECTIVES  # noqa: F401
 
 
@@ -47,9 +47,28 @@ def guarded_update_direction(H, dx, dg, g_new, rho):
     """Guarded fused H' + p' = −H' g_new; rho (B,) is 0 where the update is
     disabled, with dx, dg zeroed there, so H' = H exactly for those lanes."""
     if _on_cpu(H):
-        return bfgs_update.guarded_update_direction_plain(H, dx, dg, g_new, rho)
-    out = bfgs_update.guarded_update_direction_cuda(H, dx, dg, g_new, rho)
+        return _bfgs_update.guarded_update_direction_plain(H, dx, dg, g_new, rho)
+    out = _bfgs_update.guarded_update_direction_cuda(H, dx, dg, g_new, rho)
     guarded_update_direction.launches += 1
+    return out
+
+
+def bfgs_update(H, dx, dg):
+    """Unguarded H' with ρ = 1/(δxᵀδg) per lane, H (B, D, D), dx/dg (B, D):
+    the per-lane path's hessian_impl="pallas". Never pass a zero pair."""
+    if _on_cpu(H):
+        return _bfgs_update.bfgs_update_plain(H, dx, dg)
+    out = _bfgs_update.bfgs_update_cuda(H, dx, dg)
+    bfgs_update.launches += 1
+    return out
+
+
+def bfgs_update_direction(H, dx, dg, g_new):
+    """bfgs_update fused with p' = −H' g_new. Returns (H', p')."""
+    if _on_cpu(H):
+        return _bfgs_update.update_direction_plain(H, dx, dg, g_new)
+    out = _bfgs_update.update_direction_cuda(H, dx, dg, g_new)
+    bfgs_update_direction.launches += 1
     return out
 
 
@@ -71,8 +90,20 @@ def pso_step_update(x, v, px, gx, r1, r2, w, c1, c2):
     return out
 
 
+def meanfield_step_update(x, v, xbar, xi, w, drift, sigma, noise="anisotropic"):
+    """Fused mean-field update: (x', v') from x/v/ξ (N, D) and x̄ (D,);
+    noise "isotropic" (row-norm envelope) or "anisotropic" (signed d)."""
+    if _on_cpu(x):
+        return meanfield_step.meanfield_step_plain(x, v, xbar, xi, w, drift, sigma,
+                                                   noise)
+    out = meanfield_step.meanfield_step_cuda(x, v, xbar, xi, w, drift, sigma, noise)
+    meanfield_step_update.launches += 1
+    return out
+
+
 KERNEL_OPS = (fused_value, fused_value_grad, guarded_update_direction,
-              direction, pso_step_update)
+              bfgs_update, bfgs_update_direction, direction, pso_step_update,
+              meanfield_step_update)
 for _op in KERNEL_OPS:
     _op.launches = 0
 

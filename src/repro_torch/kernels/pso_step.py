@@ -27,7 +27,7 @@ def pso_step_cuda(x, v, px, gx, r1, r2, w, c1, c2):
     _build.check_tensor("pso_step", "gx", gx, (D,), x.device)
     x_new = torch.empty_like(x)
     v_new = torch.empty_like(x)
-    _build.launch("pso_step", _build.ptr(x), _build.ptr(v), _build.ptr(px),
+    _build.launch("pso_step_launch", _build.ptr(x), _build.ptr(v), _build.ptr(px),
                   _build.ptr(gx), _build.ptr(r1), _build.ptr(r2), float(w),
                   float(c1), float(c2), _build.ptr(x_new), _build.ptr(v_new),
                   N, D, _build.stream(x))

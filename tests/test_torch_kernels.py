@@ -16,8 +16,19 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.bfgs_update import (  # noqa: E402
+    bfgs_update_pallas,
+    update_direction_pallas,
+)
+from repro.kernels.meanfield_step import meanfield_step_pallas  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels import bfgs_update, direction, fused_obj, pso_step  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    bfgs_update,
+    direction,
+    fused_obj,
+    meanfield_step,
+    pso_step,
+)
 
 RTOL, ATOL = 1e-5, 1e-6
 N, D = 37, 7  # odd sizes: no tile or lane alignment to lean on
@@ -158,9 +169,88 @@ def test_cpu_tensors_never_count_launches():
     lambda: pso_step.pso_step_cuda(*(torch.zeros(2, 3) for _ in range(3)),
                                    torch.zeros(3), torch.zeros(2, 3),
                                    torch.zeros(2, 3), 0.5, 1.2, 1.5),
+    lambda: bfgs_update.bfgs_update_cuda(torch.zeros(2, 3, 3), torch.ones(2, 3),
+                                         torch.ones(2, 3)),
+    lambda: bfgs_update.update_direction_cuda(
+        torch.zeros(2, 3, 3), *(torch.ones(2, 3) for _ in range(3))),
+    lambda: meanfield_step.meanfield_step_cuda(
+        torch.zeros(2, 3), torch.zeros(2, 3), torch.zeros(3), torch.zeros(2, 3),
+        0.5, 1.2, 0.3),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper takes CUDA tensors only; the CPU path goes through
     the ops' device dispatch to the plain versions, never by fallback."""
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
+
+
+# -- B7a/B7b: the unguarded ρ-form update, ρ = 1/(δxᵀδg) per lane ------------
+# Against bfgs_update_pallas / update_direction_pallas (interpret mode), which
+# compute the same ρ-form: RTOL/ATOL. Against kernels/ref.py's literal
+# V H Vᵀ + ρδxδxᵀ (what the reference's ops take under
+# REPRO_DISABLE_PALLAS=1), which rounds its two D×D products differently:
+# rtol 1e-4, atol 1e-5, as for the guarded form above.
+def _unguarded_inputs(seed):
+    """Update inputs with no ρ = 0 lane and lane 3 on the engine's stand-in
+    pair δx = δg = (1, …, 1), the pair guarded lanes feed the kernel."""
+    H, dx, dg, g_new, _, _ = _update_inputs(seed=seed, frozen_every=None)
+    dx[3] = 1.0
+    dg[3] = 1.0
+    return H, dx, dg, g_new
+
+
+def test_bfgs_update_matches_pallas_and_ref():
+    H, dx, dg, _ = _unguarded_inputs(seed=8)
+    Hn = ops.bfgs_update(*(torch.from_numpy(a) for a in (H, dx, dg)))
+    jH = bfgs_update_pallas(*(jnp.asarray(a) for a in (H, dx, dg)), interpret=True)
+    _close(Hn, jH)
+    _close(Hn, jref.bfgs_update_ref(*(jnp.asarray(a) for a in (H, dx, dg))),
+           rtol=1e-4, atol=1e-5)
+    assert torch.isfinite(Hn).all()
+
+
+def test_bfgs_update_direction_matches_pallas_and_ref():
+    H, dx, dg, g_new = _unguarded_inputs(seed=9)
+    args = (H, dx, dg, g_new)
+    Hn, p = ops.bfgs_update_direction(*(torch.from_numpy(a) for a in args))
+    jH, jp = update_direction_pallas(*(jnp.asarray(a) for a in args), interpret=True)
+    _close(Hn, jH)
+    _close(p, jp)
+    rH, rp = jref.update_direction_ref(*(jnp.asarray(a) for a in args))
+    _close(Hn, rH, rtol=1e-4, atol=1e-5)
+    _close(p, rp, rtol=1e-4, atol=1e-5)
+    # B7b is B7a plus the direction: the same H', bit for bit
+    assert torch.equal(Hn, ops.bfgs_update(*(torch.from_numpy(a) for a in args[:3])))
+
+
+# -- B6: the fused mean-field update ---------------------------------------------
+@pytest.mark.parametrize("noise", ["anisotropic", "isotropic"])
+def test_meanfield_step_matches_pallas_and_ref(noise):
+    """N = 300 is no multiple of the Pallas op's 256-particle tile (it pads
+    to 512); row 5 holds an inf and row 9 a NaN, which stay in their rows."""
+    rng = _rng(10)
+    n = 300
+    x, v, xi = (rng.uniform(-5, 5, (n, D)).astype(np.float32) for _ in range(3))
+    xbar = rng.uniform(-1, 1, (D,)).astype(np.float32)
+    x[5, 2] = np.inf
+    x[9, 0] = np.nan
+    args = (x, v, xbar, xi)
+    xn, vn = ops.meanfield_step_update(*(torch.from_numpy(a) for a in args),
+                                       0.5, 1.2, 0.3, noise)
+    jx, jv = meanfield_step_pallas(*(jnp.asarray(a) for a in args), 0.5, 1.2, 0.3,
+                                   isotropic=noise == "isotropic", interpret=True)
+    rx, rv = jref.meanfield_step_ref(*(jnp.asarray(a) for a in args), 0.5, 1.2, 0.3,
+                                     noise)
+    for port, other in ((xn, jx), (vn, jv), (xn, rx), (vn, rv)):
+        _close(port, other)
+    finite = np.ones(n, bool)
+    finite[[5, 9]] = False
+    assert torch.isfinite(xn[finite]).all() and torch.isfinite(vn[finite]).all()
+    if noise == "isotropic":  # the row norm spreads a row's inf/NaN over it
+        assert not torch.isfinite(xn[[5, 9]]).any()
+
+
+def test_meanfield_step_rejects_unknown_noise():
+    z = torch.zeros(2, 3)
+    with pytest.raises(ValueError, match="noise"):
+        ops.meanfield_step_update(z, z, torch.zeros(3), z, 0.5, 1.2, 0.3, "laplace")

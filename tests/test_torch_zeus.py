@@ -43,6 +43,7 @@ from repro.kernels.ops import reference_kernels_off_tpu  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     BFGSOptions,
+    MeanFieldPSOOptions,
     PSOOptions,
     ZeusOptions,
     cluster_solutions,
@@ -283,10 +284,10 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card(entry):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(sweep_mode="per_lane"), "A7"),
+    (dict(sweep_mode="per_lane", retry_budget=1), "A11"),
     (dict(sweep_mode="megakernel"), "A9"),
-    (dict(solver="lbfgs"), "A7"),
-    (dict(phase1="meanfield"), "A10"),
+    (dict(solver="lbfgs", ladder_len=4), "A8"),
+    (dict(phase1="meanfield", schedule="replay"), "A8"),
     (dict(compact_every=1), "A8"),
     (dict(repack_every=1), "A8"),
     (dict(ladder_len=4), "A8"),
@@ -294,13 +295,43 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card(entry):
     (dict(retry_budget=1), "A11"),
     (dict(checkpoint_every=2), "A11"),
     (dict(auto_cost_model=True), "A12"),
-    (dict(bfgs=BFGSOptions(linesearch="wolfe")), "A7"),
+    (dict(solver="lbfgs", sweep_mode="per_lane", checkpoint_dir="ckpt"), "A11"),
     (dict(dtype="float64"), "float32"),
 ])
 def test_unported_options_raise(kw, item):
     obj = get_objective("sphere")
     opts = ZeusOptions(pso=PSOOptions(n_particles=8, iter_pso=1), **kw)
     with pytest.raises(NotImplementedError, match=item):
+        zeus(obj.fn, 2, obj.lower, obj.upper, opts, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(sweep_mode="per_lane"),
+    dict(sweep_mode="per_lane", bfgs=BFGSOptions(hessian_impl="reference")),
+    dict(sweep_mode="per_lane", bfgs=BFGSOptions(hessian_impl="pallas")),
+    dict(sweep_mode="per_lane", bfgs=BFGSOptions(linesearch="wolfe")),
+    dict(solver="lbfgs"),
+    dict(solver="lbfgs", sweep_mode="per_lane"),
+    dict(phase1="meanfield", meanfield=MeanFieldPSOOptions(n_particles=8, iter_pso=1)),
+], ids=["per_lane", "reference", "pallas", "wolfe", "lbfgs", "lbfgs-per_lane",
+        "meanfield"])
+def test_options_ported_from_the_reference_run(kw):
+    """Options the first slice refused (ROADMAP A7, A10) now solve."""
+    obj = get_objective("sphere")
+    opts = ZeusOptions(pso=PSOOptions(n_particles=8, iter_pso=1), **kw)
+    res = zeus(obj.fn, 2, obj.lower, obj.upper, opts, device="cpu")
+    assert res.n_converged == 8 and float(res.best_f) < 1e-6
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(bfgs=BFGSOptions(linesearch="wolfe")), "'armijo' only"),
+    (dict(sweep_mode="per_lane", compact_every=1), "requires sweep_mode='batched'"),
+    (dict(bfgs=BFGSOptions(hessian_impl="cuda")), "unknown hessian impl"),
+])
+def test_invalid_option_combinations_raise(kw, match):
+    obj = get_objective("sphere")
+    opts = ZeusOptions(pso=PSOOptions(n_particles=8, iter_pso=1), **kw)
+    with pytest.raises(ValueError, match=match):
         zeus(obj.fn, 2, obj.lower, obj.upper, opts, device="cpu")
 
 
@@ -323,4 +354,4 @@ def test_port_and_chip_smoke_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert len(modules) >= 15
+    assert len(modules) >= 22
