@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit, and torch's CUDA version;
-  2. build the five kernel sources from src/repro_torch/kernels/csrc (one
+  2. build the six kernel sources from src/repro_torch/kernels/csrc (one
      nvcc each, in parallel);
   3. hold each kernel against its plain PyTorch version on the card at the
      shapes its solves give it: B1-B4 at the paper and scale shapes, plus
@@ -14,6 +14,11 @@ Phases (any failure exits non-zero):
      shapes with a lane on the engine's stand-in pair (1, …, 1); B6 at the
      mean-field shape in both noise modes, with non-finite rows, and at a
      row count that is no multiple of the block (anisotropic bitwise);
+     B5/B5b at the megakernel solves' shapes (paper: all four objectives;
+     scale: ackley) with frozen lanes, an ackley lane at the origin and an
+     uphill lane (rung and α equal but at certified knife edges; H' == H on
+     frozen lanes; lanes bitwise equal to the plain version and f', g'
+     bitwise equal to B1b at the kernel's x' counted and printed);
   4. drive the main paths, `zeus` on "cuda", one solve at a time, with
      every launch counter set to 0 just before each solve and read just
      after, each solve's kernels required to have launched (exact counts
@@ -35,20 +40,30 @@ Phases (any failure exits non-zero):
                         times);
        sequential     — sequential_zeus (the paper's Alg. 1 baseline) on
                         the paper objective with 64 particles;
-     then, for paper and scale, the first 3 batched sweeps and, for the two
-     per-lane pallas solves, the first 3 per-lane sweeps, each from the
-     kernel path's state, through the kernels and through the plain
-     versions: rung (or trial count) and status must agree except at
-     certified knife edges, and the state within tolerance; time
+       megakernel-paper / megakernel-scale — paper and scale with
+                        sweep_mode="megakernel" (B5 once per chunk-sweep,
+                        B2 and the ladder's B1a never);
+       megakernel-ladder-scale — megakernel-scale with ladder_len=4 (the
+                        adaptive ladder, then B5b once per chunk-sweep);
+     then (4b), for paper and scale, the first 3 batched sweeps and, for
+     the two per-lane pallas solves, the first 3 per-lane sweeps, each from
+     the kernel path's state, through the kernels and through the plain
+     versions; for the three megakernel solves, the first 3 sweeps through
+     the megakernel and through the staged kernels (B1a, B1b, B2), with the
+     lanes bitwise equal on x', f' and g' counted: rung (or trial count)
+     and status must agree except at certified knife edges, and the state
+     within tolerance; time
      cluster_solutions on paper and scale (at scale, on the first 1024 and
      2048 converged lanes: its host loop is O(lanes × clusters)); and
-     profile each solve once more (device-busy share, top kernels);
+     (4c) profile each solve once more, device activity only (device-busy
+     share, top kernels);
   4d. peak device memory of run_multistart at the scale shape (3 sweeps),
      unchunked and with lane_chunk 4096 and 1024: chunking must lower it;
   5. time each kernel with CUDA events beside its plain version, its bound
      and (direction only) torch.bmm;
   6. print one JSON line {"kernels": [...]} with the measurements, the
-     card's name and power limit, and last {"ok": true, "device": {...}}.
+     script's own time, the card's name and power limit, and last
+     {"ok": true, "device": {...}}.
 
 `python3 chip_smoke.py --chunk-memory` runs phase 4d alone, against the
 repro_torch beside the script (to compare two trees on one card).
@@ -104,6 +119,10 @@ SOURCES = {
                     "src/repro/kernels/bfgs_update.py:110"),
     "bfgs_update_direction": ("src/repro_torch/kernels/csrc/bfgs_update.cu",
                               "src/repro/kernels/bfgs_update.py:127"),
+    "sweep_megakernel_full": ("src/repro_torch/kernels/csrc/sweep_megakernel.cu",
+                              "src/repro/kernels/sweep_megakernel.py:188"),
+    "sweep_megakernel_commit": ("src/repro_torch/kernels/csrc/sweep_megakernel.cu",
+                                "src/repro/kernels/sweep_megakernel.py:225"),
 }
 # the batched dense-BFGS path's kernels (the PR-12 cells paper and scale)
 BATCHED_KERNELS = ("fused_value", "fused_value_grad", "guarded_update_direction",
@@ -114,7 +133,13 @@ KERNEL_CELLS = {
     "bfgs_update": ("per_lane-paper", "per_lane-scale"),
     "bfgs_update_direction": ("per_lane-scale",),
     "meanfield_step_update": ("meanfield",),
+    "sweep_megakernel_full": ("megakernel-paper", "megakernel-scale"),
+    "sweep_megakernel_commit": ("megakernel-ladder-scale",),
 }
+# the megakernel inputs each of those cells is timed and held on
+MEGAKERNEL_CASE = {"megakernel-paper": "megakernel-paper",
+                   "megakernel-scale": "megakernel-scale",
+                   "megakernel-ladder-scale": "megakernel-scale"}
 MEANFIELD_RAGGED_N = 100_003  # no multiple of the kernels' 256-thread blocks
 
 
@@ -144,6 +169,21 @@ def solves():
         return lambda res: {"bfgs_update": res.raw.map_trips,
                             "direction": res.raw.map_trips,
                             "pso_step_update": pso_iters}
+
+    def megakernel(pso_iters, n_chunks, full):
+        # one B5 (full ladder) or B5b (adaptive ladder) per chunk and sweep;
+        # B1b and B3 at init only, once per chunk; never B2; no ladder B1a
+        # with the full ladder
+        def exact(res):
+            trips = res.raw.map_trips
+            counts = {"sweep_megakernel_full": trips if full else 0,
+                      "sweep_megakernel_commit": 0 if full else trips,
+                      "guarded_update_direction": 0, "fused_value_grad": n_chunks,
+                      "direction": n_chunks, "pso_step_update": pso_iters}
+            if full:
+                counts["fused_value"] = 0
+            return counts
+        return exact
 
     return {
         "paper": dict(
@@ -204,6 +244,21 @@ def solves():
                 bfgs=dataclasses.replace(paper_bfgs, hessian_impl="pallas",
                                          sweep_mode="per_lane")),
             must=("bfgs_update", "direction")),
+        "megakernel-paper": dict(
+            objective="rastrigin", dim=5, seed=0, compare="megakernel",
+            opts=ZeusOptions(pso=paper_pso, bfgs=paper_bfgs, lane_chunk=512,
+                             sweep_mode="megakernel"),
+            exact=megakernel(8, 4, full=True)),
+        "megakernel-scale": dict(
+            objective="ackley", dim=128, seed=1, compare="megakernel",
+            opts=ZeusOptions(pso=scale_pso, bfgs=BFGSOptions(iter_bfgs=100),
+                             sweep_mode="megakernel"),
+            exact=megakernel(5, 1, full=True)),
+        "megakernel-ladder-scale": dict(
+            objective="ackley", dim=128, seed=1, compare="megakernel",
+            opts=ZeusOptions(pso=scale_pso, bfgs=BFGSOptions(iter_bfgs=100, ladder_len=4),
+                             sweep_mode="megakernel"),
+            must=("fused_value",), exact=megakernel(5, 1, full=False)),
     }
 
 
@@ -487,6 +542,131 @@ def check_new_kernels(cases):
     return errors
 
 
+def megakernel_cases(solve_cfg, gen):
+    """Inputs of B5/B5b at the megakernel solves' shapes (C lanes of D, C the
+    lane chunk), as a sweep finds them: starts in the box, H = I + a small
+    symmetric term, g = ∇f and the descent p = −Hg, every seventh lane
+    frozen, lane 0 at the origin with p = 0 (ackley's gradient is NaN
+    there), lane 1 uphill (p = g) so that its ladder may run out, and the
+    Armijo thresholds as the staged ladder computes them. The paper shape
+    has one case per fused objective; the scale shape runs ackley."""
+    import torch
+    from repro_torch.core import get_objective
+    from repro_torch.core.linesearch import exhaustion_alpha, ladder_thresholds
+    from repro_torch.kernels import direction, fused_obj
+
+    def case(objective, C, dim, timed):
+        obj = get_objective(objective)
+        X = obj.lower + (obj.upper - obj.lower) * torch.rand(
+            C, dim, generator=gen, device="cuda")
+        X[0] = 0.0
+        F, G = fused_obj.value_grad_plain(objective, X)
+        A = 0.1 * torch.randn(C, dim, dim, generator=gen, device="cuda") / math.sqrt(dim)
+        H = (torch.eye(dim, device="cuda") + 0.5 * (A + A.transpose(1, 2))).contiguous()
+        P = direction.direction_plain(H, torch.nan_to_num(G))
+        P[0] = 0.0
+        P[1] = G[1]
+        active = torch.arange(C, device="cuda") % 7 != 0
+        alphas, rhs = ladder_thresholds(F, G, P, 0.3, K_LADDER)
+        return dict(objective=objective, X=X, P=P, G=G, H=H,
+                    active=active, rhs=rhs, alphas=alphas,
+                    exhaust=exhaustion_alpha(K_LADDER), timed=timed)
+
+    cases = {}
+    for cell in ("megakernel-paper", "megakernel-scale"):
+        cfg = solve_cfg[cell]
+        C = cfg["opts"].lane_chunk or cfg["opts"].pso.n_particles
+        names = (fused_obj.FUSED_OBJECTIVES if cell == "megakernel-paper"
+                 else (cfg["objective"],))
+        for objective in names:
+            # the solve's own objective is the one timed
+            cases[cell, objective] = case(objective, C, cfg["dim"],
+                                          objective == cfg["objective"])
+    return cases
+
+
+def check_megakernels(cases):
+    """Phase 3, B5 and B5b: each kernel against its plain version on the
+    same inputs. Rung and α must be equal but at certified knife edges, x',
+    f', g' within RTOL/ATOL, H' and p' within STATE_TOL of lane scale on the
+    well-conditioned lanes, H' == H bitwise on the frozen lanes. Counts the
+    lanes bitwise equal to the plain version, and those whose f', g' are
+    bitwise B1b's at the kernel's own x'."""
+    import types
+
+    import torch
+    from repro_torch.kernels import fused_obj, sweep_megakernel
+
+    errors = {}
+    for (cell, objective), c in cases.items():
+        args = (objective, c["X"], c["P"], c["G"], c["H"], c["active"])
+        C, dim = c["X"].shape
+        kf = sweep_megakernel.sweep_megakernel_full_cuda(*args, c["rhs"], c["alphas"],
+                                                         c["exhaust"])
+        pf = sweep_megakernel.sweep_megakernel_full_plain(*args, c["rhs"], c["alphas"],
+                                                          c["exhaust"])
+        odd = kf[6] != pf[6]
+        for i in torch.nonzero(odd).flatten().tolist():
+            r = min(int(kf[6][i]), int(pf[6][i]))
+            trial = (c["X"][i] + c["alphas"][r] * c["P"][i])[None]
+            f_r = fused_obj.value_grad_plain(objective, trial, with_grad=False)[0][0]
+            rhs = c["rhs"][r, i]
+            margin = float((f_r - rhs).abs() / max(1.0, float(rhs.abs())))
+            require(margin <= KNIFE_EDGE, f"{cell}/{objective}: B5 lane {i} accepts rung "
+                    f"{int(kf[6][i])} vs plain {int(pf[6][i])}, margin {margin:.3g}")
+        keep = ~odd
+        require(torch.equal(kf[5][keep], pf[5][keep]), f"{cell}/{objective}: B5 α differs")
+        results = {}
+        for kname, k, p in (("sweep_megakernel_full", kf, pf),
+                            ("sweep_megakernel_commit",
+                             sweep_megakernel.sweep_megakernel_commit_cuda(*args, pf[5]),
+                             sweep_megakernel.sweep_megakernel_commit_plain(*args, pf[5]))):
+            rows = keep if kname == "sweep_megakernel_full" else torch.ones_like(keep)
+            ex, ef, eg = (compare(k[j][rows], p[j][rows]) for j in range(3))
+            require(ex[2] and ef[2] and eg[2], f"{cell}/{objective}: {kname} x'/f'/g' "
+                    f"disagree (x {ex[:2]}, f {ef[:2]}, g {eg[:2]})")
+            frozen = ~c["active"]
+            require(torch.equal(k[3][frozen], c["H"][frozen]),
+                    f"{cell}/{objective}: {kname} H' != H bitwise on frozen lanes")
+            pre = types.SimpleNamespace(x=c["X"], g=c["G"], direction_state=c["H"],
+                                        converged=frozen, failed=torch.zeros_like(frozen))
+            kl = types.SimpleNamespace(x=k[0], g=k[2], direction_state=k[3])
+            # non-finite entries (the origin lane's NaN gradient and p') in
+            # the same places; the rest held per lane
+            require(all(torch.equal(torch.isfinite(k[j]), torch.isfinite(p[j]))
+                        for j in range(5)), f"{cell}/{objective}: {kname} non-finite "
+                    "entries differ")
+            finite = torch.isfinite(p[3]).all(2).all(1) & torch.isfinite(p[4]).all(1)
+            well = rows & finite & well_conditioned(pre, kl, types.SimpleNamespace(g=p[2]),
+                                                    dim)
+            eh, okh = close_per_lane(k[3][well], p[3][well])
+            ep, okp = close_per_lane(k[4][well], p[4][well])
+            require(okh and okp, f"{cell}/{objective}: {kname} H'/p' differ "
+                    f"({eh:.3g}, {ep:.3g} of lane scale)")
+            same = torch.ones(C, dtype=torch.bool, device="cuda")
+            for j in range(3):
+                same &= (k[j].view(torch.int32).reshape(C, -1)
+                         == p[j].view(torch.int32).reshape(C, -1)).all(1)
+            fb, gb = fused_obj.value_grad_cuda(objective, k[0])
+            b1b = ((fb.view(torch.int32) == k[1].view(torch.int32))
+                   & (gb.view(torch.int32) == k[2].view(torch.int32)).all(1))
+            print(f"check {cell} {objective} {kname} C={C} D={dim}: "
+                  f"{int(odd.sum()) if kname.endswith('full') else 0} knife-edge "
+                  f"rungs; max_abs_err x {ex[0]:.3g} f {ef[0]:.3g} g {eg[0]:.3g}; H'/p' "
+                  f"{eh:.3g}/{ep:.3g} of lane scale on {int(well.sum())} "
+                  f"well-conditioned lanes; x', f', g' bitwise equal to plain on "
+                  f"{int(same.sum())} of {C} lanes; f', g' bitwise B1b's on "
+                  f"{int(b1b.sum())} of {C}")
+            results[kname] = (max(ex[0], ef[0], eg[0]), 0.0, True)
+        if c["timed"]:
+            for kname, e in results.items():
+                for kcell, case_cell in MEGAKERNEL_CASE.items():
+                    if case_cell == cell and kcell in KERNEL_CELLS[kname]:
+                        errors[kname, kcell] = e
+    torch.cuda.synchronize()
+    return errors
+
+
 def _plain_path(objective):
     """The engine's batched objective and BFGS strategy, wired to the plain
     versions instead of the kernels (for the sweep-level comparison)."""
@@ -548,11 +728,16 @@ def well_conditioned(pre, kl, pl, dim):
 
 def compare_sweeps(sname, cfg):
     """Phase 4b: the first sweeps of the solve, each taken from the kernel
-    path's exact state through the kernels and through the plain versions."""
+    path's exact state two ways: for a batched solve through the kernels and
+    through the plain versions; for a megakernel solve through the
+    megakernel (B5, or the adaptive ladder and B5b) and through the staged
+    kernels (B1a, B1b, B2), counting the lanes whose x', f' and g' come out
+    bitwise equal."""
     import torch
     from repro_torch.core import (BatchedDenseBFGS, as_batched, batch_lanes_init,
                                   batch_lanes_step, get_objective, phase2_setup,
                                   run_pso)
+    from repro_torch.core.engine import megakernel_lanes_step
     from repro_torch.core.linesearch import armijo_thresholds, ladder_alphas
 
     obj = get_objective(cfg["objective"])
@@ -562,15 +747,25 @@ def compare_sweeps(sname, cfg):
                      device="cuda", generator=gen).x
     _, eopts = phase2_setup(opts)
     k_bobj, k_strat = as_batched(obj.fn), BatchedDenseBFGS()
-    p_bobj, p_strat = _plain_path(cfg["objective"])
+    mega = cfg["compare"] == "megakernel"
+    if mega:
+        k_step, (p_bobj, p_strat) = megakernel_lanes_step, (k_bobj, k_strat)
+        paths = ("megakernel", "staged kernels")
+    else:
+        k_step, (p_bobj, p_strat) = batch_lanes_step, _plain_path(cfg["objective"])
+        paths = ("kernels", "plain")
     kl = batch_lanes_init(k_bobj, k_strat, starts, eopts.theta)
     B = starts.shape[0]
     alphas = torch.as_tensor(ladder_alphas(eopts.ls_iters, "float32"), device="cuda")
-    knife = ill = 0
+    knife = ill = bitwise = stepped = 0
     worst = {}
+
+    def bits(t):
+        return t.view(torch.int32).reshape(B, -1)
+
     for sweep in range(SWEEPS_COMPARED):
         pre = kl
-        kl, _, k_rung = batch_lanes_step(k_bobj, k_strat, eopts, pre)
+        kl, _, k_rung = k_step(k_bobj, k_strat, eopts, pre)
         pl, _, p_rung = batch_lanes_step(p_bobj, p_strat, eopts, pre)
         odd = k_rung != p_rung
         for i in torch.nonzero(odd).flatten().tolist():
@@ -582,7 +777,7 @@ def compare_sweeps(sname, cfg):
             margin = float((f_r - rhs).abs() / max(1.0, float(rhs.abs())))
             require(margin <= KNIFE_EDGE,
                     f"{sname} sweep {sweep}: lane {i} accepts rung "
-                    f"{int(k_rung[i])} (kernels) vs {int(p_rung[i])} (plain), "
+                    f"{int(k_rung[i])} ({paths[0]}) vs {int(p_rung[i])} ({paths[1]}), "
                     f"Armijo margin {margin:.3g} is no knife edge")
             print(f"knife-edge accept {sname} sweep {sweep} lane {i}: rung "
                   f"{int(k_rung[i])} vs {int(p_rung[i])}, margin {margin:.3g}")
@@ -596,6 +791,12 @@ def compare_sweeps(sname, cfg):
             print(f"knife-edge status {sname} sweep {sweep} lane {i}: |g| = {gn:.6g}")
             knife += 1
         keep = ~(odd | flipped)
+        if mega:
+            active = ~(pre.converged | pre.failed)
+            same = ((bits(kl.x) == bits(pl.x)).all(1) & (bits(kl.f) == bits(pl.f)).all(1)
+                    & (bits(kl.g) == bits(pl.g)).all(1))
+            bitwise += int((same & active).sum())
+            stepped += int(active.sum())
         for field in ("x", "f", "g"):
             e, ok = close_per_lane(getattr(kl, field)[keep], getattr(pl, field)[keep])
             require(ok, f"{sname} sweep {sweep}: {field} differs ({e:.3g} of lane scale)")
@@ -607,10 +808,12 @@ def compare_sweeps(sname, cfg):
             require(ok, f"{sname} sweep {sweep}: {field} differs ({e:.3g} of lane scale)")
             worst[field] = max(worst.get(field, 0.0), e)
     print(f"sweeps {sname}: {SWEEPS_COMPARED} sweeps of {B} lanes, each from the kernel "
-          f"path's state, kernels vs plain: {knife} knife-edge lane-sweeps, rung and "
-          f"status equal on the rest; {ill} lane-sweeps with an ill-conditioned "
-          "update not held on H'/p'; max error over lane scale "
-          + ", ".join(f"{k}={v:.3g}" for k, v in worst.items()))
+          f"path's state, {paths[0]} vs {paths[1]}: {knife} knife-edge lane-sweeps, "
+          f"rung and status equal on the rest; {ill} lane-sweeps with an "
+          "ill-conditioned update not held on H'/p'; max error over lane scale "
+          + ", ".join(f"{k}={v:.3g}" for k, v in worst.items())
+          + (f"; x', f', g' bitwise equal on {bitwise} of {stepped} active lane-sweeps"
+             if mega else ""))
 
 
 def compare_per_lane_sweeps(sname, cfg):
@@ -761,7 +964,7 @@ def run_solves(solve_cfg):
             if cfg.get("cluster"):
                 time_clustering(res.raw)
         del res
-        if cfg.get("compare") == "batched":
+        if cfg.get("compare") in ("batched", "megakernel"):
             compare_sweeps(sname, cfg)
         elif cfg.get("compare") == "per_lane":
             compare_per_lane_sweeps(sname, cfg)
@@ -835,13 +1038,14 @@ def profile_solves(solve_cfg):
 
     for sname, cfg in solve_cfg.items():
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # device activity only: recording every host-side op as well cost
+        # most of the script's time on the per-lane and sequential solves
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run_solve(cfg)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        # device-side events only (kernels, memcpy/memset): the aten:: ops
-        # that launched them carry the same device time again
+        # device-side events only (kernels, memcpy/memset)
         rows = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         rows = sorted((r for r in rows if r[0] > 0), reverse=True)
@@ -931,6 +1135,61 @@ def time_new_kernels(cases):
     return timings
 
 
+def megakernel_bounds(kname, c):
+    """bounds() for B5 and B5b, from the case's shapes: read x, p, g, H and
+    the active mask (and rhs and the ladder, or α), write x', f', g', H', p'
+    (and α and the rung); the trial fan's objective terms (B5), the value
+    and gradient at x', the step, the pairs, δxᵀδg, and the update's
+    12·D² + p's 2·D² per lane."""
+    C, D = c["X"].shape
+    K = c["rhs"].shape[0]
+    f4 = 4
+    value = {"sphere": 2, "rastrigin": 6, "rosenbrock": 8, "ackley": 5}[c["objective"]]
+    grad = {"sphere": 1, "rastrigin": 5, "rosenbrock": 9, "ackley": 6}[c["objective"]]
+    nbytes = 2 * C * D * D * f4 + 6 * C * D * f4 + C * f4 + C
+    ops = C * (D * (value + grad) + 8 * D + 14 * D * D)
+    if kname == "sweep_megakernel_full":
+        nbytes += K * C * f4 + K * f4 + 2 * C * f4
+        ops += K * C * D * (2 + value)
+    else:
+        nbytes += C * f4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_megakernels(cases):
+    """Phase 5, B5 and B5b at the cells of KERNEL_CELLS: kernel and plain
+    version in turns; no single PyTorch call computes either."""
+    from repro_torch.kernels import sweep_megakernel
+
+    timings = {}
+    for kname in ("sweep_megakernel_full", "sweep_megakernel_commit"):
+        for cell in KERNEL_CELLS[kname]:
+            c = next(c for (cc, _), c in cases.items()
+                     if cc == MEGAKERNEL_CASE[cell] and c["timed"])
+            args = (c["objective"], c["X"], c["P"], c["G"], c["H"], c["active"])
+            if kname == "sweep_megakernel_full":
+                extra = (c["rhs"], c["alphas"], c["exhaust"])
+                kern = sweep_megakernel.sweep_megakernel_full_cuda
+                plain = sweep_megakernel.sweep_megakernel_full_plain
+            else:
+                extra = (sweep_megakernel.sweep_megakernel_full_plain(
+                    *args, c["rhs"], c["alphas"], c["exhaust"])[5],)
+                kern = sweep_megakernel.sweep_megakernel_commit_cuda
+                plain = sweep_megakernel.sweep_megakernel_commit_plain
+            p1, k1, k2, p2 = (time_ms(lambda f=f: f(*args, *extra))
+                              for f in (plain, kern, kern, plain))
+            bound_ms, bound_by = megakernel_bounds(kname, c)
+            timings[kname, cell] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                                        library_ms=None, bound_ms=bound_ms,
+                                        bound_by=bound_by)
+            print(f"time {cell} {kname} C={c['X'].shape[0]} D={c['X'].shape[1]}: kernel "
+                  f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})")
+    return timings
+
+
 def main() -> int:
     import torch
 
@@ -979,6 +1238,8 @@ def main() -> int:
     errors = {(k, s): e for s, per in errors.items() for k, e in per.items()}
     new_cases = new_kernel_cases(gen)
     errors.update(check_new_kernels(new_cases))
+    mk_cases = megakernel_cases(solve_cfg, gen)
+    errors.update(check_megakernels(mk_cases))
 
     print(f"[{time.perf_counter() - t_start:.1f} s] kernels checked")
     launches = run_solves(solve_cfg)  # phase 4
@@ -989,6 +1250,7 @@ def main() -> int:
     timings = {(k, s): t for s, per in time_kernels(cases, solve_cfg).items()
                for k, t in per.items()}  # phase 5
     timings.update(time_new_kernels(new_cases))
+    timings.update(time_megakernels(mk_cases))
     print(f"[{time.perf_counter() - t_start:.1f} s] kernels timed")
 
     entries = []
@@ -1003,6 +1265,7 @@ def main() -> int:
                 plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                 bound_by=t["bound_by"], library_ms=t["library_ms"]))
     print(json.dumps({"launch_counts": launches}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """ZEUS core on PyTorch: PSO or mean-field phase 1, multistart BFGS or
-L-BFGS on the batched or per-lane sweep, and the sequential baseline.
+L-BFGS on the batched, megakernel or per-lane sweep, and the sequential
+baseline.
 
 Port of src/repro/core for a single host (see the module docstrings for
 what each file covers and what is not ported yet).
@@ -24,6 +25,7 @@ from repro_torch.core.engine import (
     BatchedDirectionStrategy,
     BatchLanes,
     BFGSResult,
+    DirectionStrategy,
     EngineOptions,
     Lane,
     VmappedStrategy,
@@ -35,11 +37,13 @@ from repro_torch.core.engine import (
     lane_step,
     register_solver,
     run_multistart,
+    solver_names,
 )
 from repro_torch.core.lbfgs import LBFGS, LBFGSOptions, batched_lbfgs
 from repro_torch.core.meanfield import (
     MeanFieldPSOOptions,
     MeanFieldState,
+    consensus_point,
     run_meanfield_pso,
 )
 from repro_torch.core.objectives import (
@@ -65,4 +69,5 @@ from repro_torch.core.zeus import (
     sequential_zeus,
     solve_phase2,
     zeus,
+    zeus_jit,
 )

@@ -49,13 +49,14 @@ class BFGSOptions:
     # always runs the guarded kernel
     hessian_impl: str = "fast"
     lane_chunk: Optional[int] = None  # chunked lane execution (engine)
-    # "batched" | "per_lane"; the JAX package defaults to "per_lane", the
-    # port keeps "batched", its kernels' path
+    # "batched" | "megakernel" | "per_lane"; the JAX package defaults to
+    # "per_lane", the port keeps "batched", its kernels' path
     sweep_mode: str = "batched"
     # not ported yet; any other than the default raises in the engine
     compact_every: int = 0  # A8
     repack_every: int = 0  # A8
-    ladder_len: int = 0  # A8
+    # adaptive Armijo ladder length on the batched modes (0 = full ladder)
+    ladder_len: int = 0
     schedule: str = "static"  # A8
     auto_cost_model: bool = False  # A12
     retry_budget: int = 0  # A11
@@ -135,8 +136,14 @@ class BatchedDenseBFGS:
     lane keeps H' = H exactly. `direction_op` and `update_op` are the kernel
     ops; a subclass may swap in other implementations of the same
     functions (chip_smoke.py holds the kernels against the plain versions
-    this way)."""
+    this way).
 
+    The state is the dense (B, D, D) H stack and the update the guarded
+    ρ-form, which is what the sweep megakernel computes in its own launch:
+    `megakernel_dense_h` lets sweep_mode="megakernel" take this strategy's
+    update into that launch (engine.megakernel_unsupported_reason)."""
+
+    megakernel_dense_h = True
     direction_op = staticmethod(kernel_ops.direction)
     update_op = staticmethod(kernel_ops.guarded_update_direction)
 

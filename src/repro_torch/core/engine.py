@@ -29,6 +29,17 @@ leading lane axis B.
          direction. A per-lane strategy runs here through
          `as_batched_strategy`: dense BFGS has its own batch-level
          strategy, any other gets `VmappedStrategy`.
+      With `ladder_len = L` (0 < L < K) step 2 is the adaptive ladder: L
+      rungs in one call, then one call per further rung while any lane
+      still searches;
+  "megakernel" — the batched sweep with steps 2-5 in one launch of the
+      sweep megakernel (kernel B5, `megakernel_lanes_step`), or, with
+      0 < ladder_len < K, the adaptive ladder as above and steps 3-5 in one
+      launch of the commit kernel (B5b). Its results are the batched
+      sweep's: array-equal on the CPU, where both run the plain versions.
+      It serves dense BFGS on the four objectives with a fused body, up to
+      the kernel's shared-memory cap on D; `megakernel_unsupported_reason`
+      sends every other solve to the batched sweep with a RuntimeWarning.
 
 `run_multistart` is a host loop: `lax.while_loop` and `lax.map` become
 Python loops, and the two stop counts are read back to the host in one
@@ -41,13 +52,13 @@ chunks. Every evaluator on the path is row-independent, so a chunked solve
 is array-equal to the unchunked one.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-sweep_mode "megakernel" (A9); compact_every, repack_every, ladder_len > 0
-and schedule != "static" (A8); retry_budget, checkpoint_every/
-checkpoint_dir and fault_plan (A11); auto_cost_model (A12).
+compact_every, repack_every and schedule != "static" (A8); retry_budget,
+checkpoint_every/checkpoint_dir and fault_plan (A11); auto_cost_model (A12).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, Dict, NamedTuple, Optional, Protocol, Tuple
 
 import torch
@@ -57,13 +68,17 @@ from repro_torch.core.dual import grad_eval_cost
 from repro_torch.core.linesearch import (
     armijo_backtracking,
     armijo_backtracking_batch,
+    exhaustion_alpha,
+    ladder_thresholds,
     wolfe_linesearch,
 )
 from repro_torch.core.objectives import (
     BatchedObjective,
     Objective,
+    analytic_fused_name,
     as_batched,
 )
+from repro_torch.kernels import ops as kernel_ops
 
 # status codes, matching the paper's result.status
 DIVERGED = 0  # hit iter_max without |g| < theta (or NaN/Inf escape)
@@ -71,6 +86,10 @@ CONVERGED = 1
 STOPPED = 2  # stop-flag: other lanes filled required_c first
 
 _CURV_EPS = 1e-10
+
+# sweep modes that run whole-batch sweeps (vs the per-lane step); every
+# batched-only option accepts both
+_BATCHED_MODES = ("batched", "megakernel")
 
 
 class BFGSResult(NamedTuple):
@@ -104,13 +123,14 @@ class EngineOptions:
     linesearch: str = "armijo"  # "armijo" (paper) | "wolfe" (per_lane only)
     ad_mode: str = "forward"  # "forward" (paper) | "reverse" (beyond-paper)
     lane_chunk: Optional[int] = None  # None = one monolithic batch
-    # "batched" | "per_lane" ("megakernel" is A9). The JAX package
-    # defaults to "per_lane"; the port keeps "batched", its kernels' path.
+    # "batched" | "megakernel" | "per_lane". The JAX package defaults to
+    # "per_lane"; the port keeps "batched", its kernels' path.
     sweep_mode: str = "batched"
     # not ported yet; any other than the default raises (ROADMAP item)
     compact_every: int = 0  # A8
     repack_every: int = 0  # A8
-    ladder_len: int = 0  # A8
+    # adaptive Armijo ladder length on the batched modes (0 = full ladder)
+    ladder_len: int = 0
     schedule: str = "static"  # A8
     auto_cost_model: bool = False  # A12
     retry_budget: int = 0  # A11
@@ -119,41 +139,43 @@ class EngineOptions:
     fault_plan: Optional[Any] = None  # A11
 
 
-_SCHEDULE_KNOBS = ("compact_every", "repack_every", "ladder_len")
-
-
 def check_engine_options(opts: EngineOptions) -> None:
     """Raise on options this port does not run yet, naming their ROADMAP
     item, and on values the reference rejects too."""
-    if opts.sweep_mode == "megakernel":
-        raise NotImplementedError(
-            "sweep_mode='megakernel' is not ported yet (ROADMAP A9); the port "
-            "runs sweep_mode='batched' or 'per_lane'")
-    if opts.sweep_mode not in ("batched", "per_lane"):
+    if opts.sweep_mode not in _BATCHED_MODES + ("per_lane",):
         raise ValueError(
             f"unknown sweep_mode {opts.sweep_mode!r}; expected 'per_lane', "
             "'batched' or 'megakernel'")
     if opts.linesearch not in ("armijo", "wolfe"):
         raise ValueError(f"unknown linesearch {opts.linesearch!r}")
-    if opts.sweep_mode == "batched" and opts.linesearch != "armijo":
+    batched = opts.sweep_mode in _BATCHED_MODES
+    if batched and opts.linesearch != "armijo":
         raise ValueError(
-            "sweep_mode='batched' supports linesearch='armijo' only (got "
-            f"{opts.linesearch!r}); use sweep_mode='per_lane'")
-    for field in _SCHEDULE_KNOBS:
+            f"sweep_mode={opts.sweep_mode!r} supports linesearch='armijo' only "
+            f"(got {opts.linesearch!r}); use sweep_mode='per_lane'")
+    for field in ("compact_every", "repack_every"):
         value = getattr(opts, field)
         if value < 0:
             raise ValueError(f"{field} must be >= 0 (got {value})")
-        if value > 0 and opts.sweep_mode == "per_lane":
+        if value > 0 and not batched:
             raise ValueError(
-                f"{field} > 0 requires sweep_mode='batched' (got 'per_lane')")
+                f"{field} > 0 requires sweep_mode='batched'/'megakernel' (got "
+                f"{opts.sweep_mode!r})")
         if value > 0:
             raise NotImplementedError(
                 f"{field}={value} is not ported yet (ROADMAP A8)")
+    if opts.ladder_len < 0:
+        raise ValueError(f"ladder_len must be >= 0 (got {opts.ladder_len})")
+    if opts.ladder_len > 0 and not batched:
+        raise ValueError(
+            "ladder_len > 0 shortens the speculative batched ladder and requires "
+            f"sweep_mode='batched'/'megakernel' (got {opts.sweep_mode!r}); the "
+            "per-lane sequential search is already adaptive")
     if opts.schedule != "static":
-        if opts.sweep_mode == "per_lane":
+        if not batched:
             raise ValueError(
-                f"schedule={opts.schedule!r} requires sweep_mode='batched' "
-                "(got 'per_lane')")
+                f"schedule={opts.schedule!r} requires sweep_mode='batched'/"
+                f"'megakernel' (got {opts.sweep_mode!r})")
         raise NotImplementedError(
             f"schedule={opts.schedule!r} is not ported yet (ROADMAP A8)")
     if opts.auto_cost_model:
@@ -391,10 +413,10 @@ def batch_lanes_step(bobj, bstrategy: BatchedDirectionStrategy,
     """One sweep over the whole stack (Alg. 4 lines 10-16, batch level).
 
     Returns (lanes', rows, rung): rows is the number of physical objective
-    rows this step evaluated ((K + 1) per lane in the stack, frozen lanes
-    included) and rung the (B,) int32 accepted Armijo rung per lane (K when
-    exhausted). The reference returns the histogram of `rung` over the
-    active lanes instead, which only its sweep scheduler reads."""
+    rows this step evaluated ((ladder trials + 1) per lane in the stack,
+    frozen lanes included) and rung the (B,) int32 accepted Armijo rung per
+    lane (K when exhausted). The reference returns the histogram of `rung`
+    over the active lanes instead, which only its sweep scheduler reads."""
     X, F, G, P = lanes.x, lanes.f, lanes.g, lanes.p
     active = torch.logical_not(torch.logical_or(lanes.converged, lanes.failed))
 
@@ -403,7 +425,8 @@ def batch_lanes_step(bobj, bstrategy: BatchedDirectionStrategy,
     P = torch.where(descent[:, None], P, -G)
 
     ls = armijo_backtracking_batch(
-        bobj.value_batch, X, P, F, G, c1=opts.ls_c1, max_iters=opts.ls_iters)
+        bobj.value_batch, X, P, F, G, c1=opts.ls_c1, max_iters=opts.ls_iters,
+        ladder_len=opts.ladder_len)
     X_new = X + ls.alpha[:, None] * P
     F_new, G_new = bobj.value_and_grad_batch(X_new)
 
@@ -414,7 +437,18 @@ def batch_lanes_step(bobj, bstrategy: BatchedDirectionStrategy,
     ok = active & torch.isfinite(curv) & (curv > _CURV_EPS)
     state, P_next = bstrategy.update_and_direction_batch(
         lanes.direction_state, dX, dG, ok, G_new)
+    return _sweep_epilogue(bobj, opts, lanes, active, X_new, F_new, G_new, state,
+                           P_next, ls.n_evals, ls.rung)
 
+
+def _sweep_epilogue(bobj, opts: EngineOptions, lanes: BatchLanes,
+                    active: torch.Tensor, X_new, F_new, G_new, state, P_next,
+                    n_evals: int, rung: torch.Tensor
+                    ) -> Tuple[BatchLanes, int, torch.Tensor]:
+    """The end of a batched sweep, one code for both batched modes: the
+    convergence and failure flags, the active lanes' new state (the frozen
+    ones keep theirs), the eval counters and the row count."""
+    X = lanes.x
     gn = torch.linalg.vector_norm(G_new, dim=-1)
     now_converged = gn < opts.theta
     now_failed = torch.logical_not(
@@ -426,17 +460,82 @@ def batch_lanes_step(bobj, bstrategy: BatchedDirectionStrategy,
 
     stepped = BatchLanes(
         x=keep(X_new, X),
-        f=keep(F_new, F),
-        g=keep(G_new, G),
+        f=keep(F_new, lanes.f),
+        g=keep(G_new, lanes.g),
         p=keep(P_next, lanes.p),
         converged=torch.where(active, now_converged, lanes.converged),
         failed=torch.where(active, now_failed, lanes.failed),
         n_evals=lanes.n_evals + torch.where(
-            active, ls.n_evals + bobj.vg_cost(X.shape[-1]), 0).to(torch.int32),
+            active, n_evals + bobj.vg_cost(X.shape[-1]), 0).to(torch.int32),
         direction_state=state,
     )
-    rows = (ls.n_evals + 1) * X.shape[0]
-    return stepped, rows, ls.rung
+    rows = (n_evals + 1) * X.shape[0]
+    return stepped, rows, rung
+
+
+# ---------------------------------------------------------------------------
+# Megakernel sweep path (sweep_mode="megakernel"): the batched sweep's
+# semantics behind batch_lanes_step's (lanes', rows, rung) contract, with
+# the staged launches fused into the sweep megakernel (kernels B5/B5b). On
+# the CPU both kernels' plain versions compose the staged path's own plain
+# functions, so the two sweeps are array-equal there.
+# ---------------------------------------------------------------------------
+def megakernel_unsupported_reason(bobj, bstrategy, dim: int,
+                                  opts: EngineOptions) -> Optional[str]:
+    """Why sweep_mode='megakernel' cannot serve this solve, or None if it
+    can. A reason sends run_multistart to the batched sweep, whose results
+    the megakernel's equal. Unlike the reference's gate there is no
+    rosenbrock rule: the port pads nothing."""
+    if analytic_fused_name(bobj) is None:
+        return (
+            f"objective {getattr(bobj, 'name', None)!r} has no analytic fused "
+            "kernel body to inline (registered evaluators are opaque callables)")
+    if not getattr(bstrategy, "megakernel_dense_h", False):
+        return (
+            f"direction strategy {type(bstrategy).__name__} does not advertise a "
+            "dense-H megakernel form (megakernel_dense_h)")
+    if opts.ls_iters < 1:
+        return "ls_iters < 1 leaves no ladder to fuse"
+    cap = kernel_ops.megakernel_max_dim(opts.ls_iters)
+    if dim > cap:
+        return (
+            f"dim {dim} exceeds the cap of {cap} that the kernel's shared memory "
+            f"allows with a {opts.ls_iters}-rung ladder")
+    return None
+
+
+def megakernel_lanes_step(bobj, bstrategy: BatchedDirectionStrategy,
+                          opts: EngineOptions, lanes: BatchLanes
+                          ) -> Tuple[BatchLanes, int, torch.Tensor]:
+    """One sweep with batch_lanes_step's contract in one launch (the full
+    ladder, B5) or two and more (the adaptive ladder's value calls, then
+    the commit, B5b). Only for solves megakernel_unsupported_reason
+    accepts; the strategy's state is the (B, D, D) H stack."""
+    name = analytic_fused_name(bobj)
+    X, F, G, H = lanes.x, lanes.f, lanes.g, lanes.direction_state
+    active = torch.logical_not(torch.logical_or(lanes.converged, lanes.failed))
+
+    # descent safeguard, rowwise, outside the kernel as in the staged path
+    descent = torch.sum(lanes.p * G, dim=-1) < 0
+    P = torch.where(descent[:, None], lanes.p, -G)
+
+    K = opts.ls_iters
+    L = K if opts.ladder_len <= 0 else min(opts.ladder_len, K)
+    if L == K:
+        # the staged ladder's own thresholds: the kernel makes its accepts
+        alphas, rhs = ladder_thresholds(F, G, P, opts.ls_c1, K)
+        X_new, F_new, G_new, state, P_next, _, rung = kernel_ops.sweep_megakernel_full(
+            name, X, P, G, H, active, rhs, alphas, exhaustion_alpha(K))
+        n_evals = K
+    else:
+        ls = armijo_backtracking_batch(
+            bobj.value_batch, X, P, F, G, c1=opts.ls_c1, max_iters=K,
+            ladder_len=opts.ladder_len)
+        X_new, F_new, G_new, state, P_next = kernel_ops.sweep_megakernel_commit(
+            name, X, P, G, H, active, ls.alpha)
+        n_evals, rung = ls.n_evals, ls.rung
+    return _sweep_epilogue(bobj, opts, lanes, active, X_new, F_new, G_new, state,
+                           P_next, n_evals, rung)
 
 
 def _stop_counts(chunks) -> Tuple[int, int]:
@@ -462,7 +561,7 @@ def run_multistart(
               the batched sweep).
     x0:       (B, D) float32 starts, a tensor or array; moved to `device`.
     strategy: a per-lane DirectionStrategy (core/bfgs.DenseBFGS,
-              core/lbfgs.LBFGS) or, for sweep_mode="batched" only, a
+              core/lbfgs.LBFGS) or, for the batched modes only, a
               batch-level one (core/bfgs.BatchedDenseBFGS).
     device:   "cuda" (default) or "cpu"; no silent CPU fallback."""
     check_engine_options(opts)
@@ -477,15 +576,24 @@ def run_multistart(
     n_chunks = -(-B // C)
     pad = n_chunks * C - B
 
-    if opts.sweep_mode == "batched":
+    if opts.sweep_mode in _BATCHED_MODES:
         bobj = as_batched(f, ad_mode=opts.ad_mode)
         bstrategy = as_batched_strategy(strategy)
+        step_impl = batch_lanes_step
+        if opts.sweep_mode == "megakernel":
+            reason = megakernel_unsupported_reason(bobj, bstrategy, D, opts)
+            if reason is None:
+                step_impl = megakernel_lanes_step
+            else:
+                warnings.warn(
+                    f"sweep_mode='megakernel': {reason}; running the batched "
+                    "sweep instead (the same results)", RuntimeWarning, stacklevel=2)
 
         def init_chunk(X):
             return batch_lanes_init(bobj, bstrategy, X, opts.theta)
 
         def step_chunk(lanes):
-            lanes, rows, _ = batch_lanes_step(bobj, bstrategy, opts, lanes)
+            lanes, rows, _ = step_impl(bobj, bstrategy, opts, lanes)
             return lanes, rows
 
         eval_rows = n_chunks * C  # init: one value+grad row per lane
@@ -578,6 +686,11 @@ def register_solver(name: str):
 def _ensure_builtin_solvers():
     # importing the strategy modules registers their factories
     from repro_torch.core import bfgs, lbfgs  # noqa: F401
+
+
+def solver_names() -> Tuple[str, ...]:
+    _ensure_builtin_solvers()
+    return tuple(sorted(_SOLVERS))
 
 
 def get_solver(name: str) -> SolverFactory:

@@ -38,13 +38,14 @@ class LBFGSOptions:
     linesearch: str = "armijo"  # "armijo" | "wolfe" (per_lane only)
     ad_mode: str = "reverse"  # reverse is the right default at high D
     lane_chunk: Optional[int] = None  # chunked lane execution (engine)
-    # "batched" | "per_lane"; the JAX package defaults to "per_lane", the
-    # port keeps "batched" as for BFGSOptions
+    # "batched" | "megakernel" | "per_lane"; the JAX package defaults to
+    # "per_lane", the port keeps "batched" as for BFGSOptions
     sweep_mode: str = "batched"
     # not ported yet; any other than the default raises in the engine
     compact_every: int = 0  # A8
     repack_every: int = 0  # A8
-    ladder_len: int = 0  # A8
+    # adaptive Armijo ladder length on the batched modes (0 = full ladder)
+    ladder_len: int = 0
     schedule: str = "static"  # A8
     auto_cost_model: bool = False  # A12
     retry_budget: int = 0  # A11

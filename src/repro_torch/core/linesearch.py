@@ -3,14 +3,15 @@
 Port of src/repro/core/linesearch.py:
   - the speculative batched Armijo of the batched sweep: the full α ladder
     α₀·shrinkᵏ, k = 0..K-1, for all B lanes as ONE (K·B, D) value call, and
-    the first accepted rung per lane;
+    the first accepted rung per lane; with `ladder_len = L` (0 < L < K) the
+    adaptive ladder: the first L rungs as one call, then one (B, D) call
+    per further rung while any lane still searches;
   - the sequential Armijo backtracking and the weak-Wolfe bisection of the
     per-lane sweep. The reference writes each as a scalar `while_loop` that
     `jax.vmap` runs over the lanes; here each is one loop over the whole
     lane stack in which every lane keeps its own loop state, and a lane
     that has finished keeps it while the others go on. The loop ends when
     no lane continues or after `max_iters` rounds.
-The adaptive ladder (`ladder_len > 0`) is not ported yet (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -41,12 +42,30 @@ def _device_ladder(K: int, alpha0: float, shrink: float,
                            device=device)
 
 
+def exhaustion_alpha(K: int, alpha0: float = 1.0, shrink: float = 0.5) -> float:
+    """The α a lane takes when it accepts none of the K rungs: α_{K−1}·shrink
+    rounded in float32, as the sequential search's last halving and the
+    staged ladder's `alphas[-1] * shrink` round it."""
+    return float(ladder_alphas(K, np.float32, alpha0, shrink)[-1] * np.float32(shrink))
+
+
 def armijo_thresholds(F0: torch.Tensor, ddir: torch.Tensor,
                       alphas: torch.Tensor, c1: float) -> torch.Tensor:
     """Armijo accept thresholds f₀ + c1·αₖ·(g₀ᵀp) for all K rungs, (K, B),
     in the reference's operation order: (c1·αₖ)·ddir, then + f₀. Eager
     torch materialises each op, so nothing re-fuses the chain."""
     return F0[None] + c1 * alphas[:, None] * ddir[None]
+
+
+def ladder_thresholds(F0: torch.Tensor, G0: torch.Tensor, P: torch.Tensor,
+                      c1: float, K: int, alpha0: float = 1.0, shrink: float = 0.5):
+    """(alphas (K,), rhs (K, B)): the device ladder and the Armijo thresholds
+    of a batched search. Every batched program (the full ladder, the
+    adaptive ladder, the sweep megakernel) compares against this one
+    computation, so all make the same accept decisions."""
+    ddir = torch.sum(G0 * P, dim=-1)  # (B,) directional derivatives
+    alphas = _device_ladder(K, alpha0, shrink, P.device)
+    return alphas, armijo_thresholds(F0, ddir, alphas, c1)
 
 
 class LineSearchResult(NamedTuple):
@@ -143,8 +162,24 @@ def wolfe_linesearch(
 class BatchLineSearchResult(NamedTuple):
     alpha: torch.Tensor  # (B,) accepted step sizes
     f_new: torch.Tensor  # (B,) f at the accepted (or last evaluated) trial
-    n_evals: int  # objective evals per lane: K for the full ladder
+    # objective evals per lane: K for the full ladder, L + the fallback
+    # rungs run for the adaptive one
+    n_evals: int
     rung: torch.Tensor  # (B,) int32 accepted rung, K when exhausted
+
+
+def rung_tail_fallback_launches(hist, ladder_len: int) -> int:
+    """Fallback launches an L-rung ladder implies for an accepted-rung
+    histogram `hist` (K + 1 bins; bin K = exhausted): fallback rung
+    j ∈ [L, K) launches iff some lane needs it, i.e. iff Σ_{r≥j} hist[r] > 0.
+    L <= 0 or L >= K (the full ladder) pays none."""
+    h = np.asarray(hist)
+    K = h.shape[0] - 1
+    L = int(ladder_len)
+    if L <= 0 or L >= K:
+        return 0
+    tails = np.cumsum(h[::-1])[::-1]  # tails[j] = Σ_{r≥j} h[r]
+    return int(np.count_nonzero(tails[L:K] > 0))
 
 
 def armijo_backtracking_batch(
@@ -157,6 +192,7 @@ def armijo_backtracking_batch(
     alpha0: float = 1.0,
     shrink: float = 0.5,
     max_iters: int = 20,
+    ladder_len: int = 0,
 ) -> BatchLineSearchResult:
     """Speculative batched Armijo: the whole α ladder in one value call.
 
@@ -164,7 +200,20 @@ def armijo_backtracking_batch(
     probes, the accepted α is the one it would accept. A lane that accepts
     no rung takes α_last·shrink and reports the last trial's f, as the
     sequential search does on exhaustion. `value_batch` must be
-    row-independent (row i's value depends on row i only)."""
+    row-independent (row i's value depends on row i only).
+
+    `ladder_len = L` (0 < L < K) makes the ladder adaptive: the first L
+    rungs go out as one (L·B, D) call, then each further rung as one
+    (B, D) call over the whole stack while any lane still searches. Every
+    call builds its trials with the one expression
+    X[None] + al[:, None, None] * P[None] from the one ladder, so each
+    trial row, each Armijo comparison and the exhaustion α are bitwise the
+    full ladder's, and so are α and rung. Before each fallback rung the
+    host reads back whether every lane is done: one readback per fallback
+    rung checked. A lane whose threshold is NaN (NaN f₀ or g₀ᵀp) can never
+    accept and starts done, so it cannot make every fallback rung launch;
+    it keeps α_{L−1}·shrink, as in the reference. ladder_len <= 0 or >= K
+    runs the full ladder."""
     B, D = X.shape
     K = max_iters
     if K <= 0:
@@ -172,21 +221,49 @@ def armijo_backtracking_batch(
             alpha=torch.full((B,), alpha0, dtype=X.dtype, device=X.device),
             f_new=F0, n_evals=0,
             rung=torch.zeros((B,), dtype=torch.int32, device=X.device))
-    ddir = torch.sum(G0 * P, dim=-1)  # (B,) directional derivatives
-    alphas = _device_ladder(K, alpha0, shrink, X.device)
-    rhs = armijo_thresholds(F0, ddir, alphas, c1)  # (K, B)
+    L = K if ladder_len <= 0 else min(ladder_len, K)
+    alphas, rhs = ladder_thresholds(F0, G0, P, c1, K, alpha0, shrink)
 
-    trials = X[None] + alphas[:, None, None] * P[None]  # (K, B, D)
-    F = value_batch(trials.reshape(K * B, D)).reshape(K, B)
-    ok = F <= rhs
+    def ladder_launch(al):
+        """One value call over the rungs `al` (a slice of the ladder)."""
+        k = al.shape[0]
+        trials = X[None] + al[:, None, None] * P[None]  # (k, B, D)
+        return value_batch(trials.reshape(k * B, D)).reshape(k, B)
+
+    F = ladder_launch(alphas[:L])
+    ok = F <= rhs[:L]
     any_ok = torch.any(ok, dim=0)
     # argmax returns the first maximum: the first accepted rung (0 if none)
     k_acc = torch.argmax(ok.to(torch.int32), dim=0)
     alpha_acc = alphas[k_acc]
     f_acc = torch.gather(F, 0, k_acc[None])[0]
-    return BatchLineSearchResult(
-        alpha=torch.where(any_ok, alpha_acc, alphas[-1] * shrink),
-        f_new=torch.where(any_ok, f_acc, F[-1]),
-        n_evals=K,
-        rung=torch.where(any_ok, k_acc, K).to(torch.int32),
-    )
+    rung = torch.where(any_ok, k_acc, K).to(torch.int32)
+    if L == K:
+        return BatchLineSearchResult(
+            alpha=torch.where(any_ok, alpha_acc, alphas[-1] * shrink),
+            f_new=torch.where(any_ok, f_acc, F[-1]),
+            n_evals=K,
+            rung=rung,
+        )
+
+    # masked sequential fallback over the remaining rungs; a lane rejecting
+    # rung i carries α_i·shrink, so exhaustion at i = K-1 is the full
+    # ladder's alphas[-1]·shrink
+    alpha = torch.where(any_ok, alpha_acc, alphas[L - 1] * shrink)
+    f1 = torch.where(any_ok, f_acc, F[-1])
+    done = any_ok | torch.isnan(rhs[0])
+    n = L
+    for i in range(L, K):
+        if bool(torch.all(done)):
+            break
+        Ft = ladder_launch(alphas[i:i + 1])[0]
+        ok_i = Ft <= rhs[i]
+        searching = ~done
+        alpha = torch.where(searching,
+                            torch.where(ok_i, alphas[i], alphas[i] * shrink), alpha)
+        f1 = torch.where(searching, Ft, f1)
+        accepted = searching & ok_i
+        done = done | accepted
+        rung = torch.where(accepted, i, rung).to(torch.int32)
+        n += 1
+    return BatchLineSearchResult(alpha=alpha, f_new=f1, n_evals=n, rung=rung)

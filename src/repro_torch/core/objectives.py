@@ -148,6 +148,19 @@ def _fused_impls_for(name: str):
     return None
 
 
+def analytic_fused_name(bobj) -> Optional[str]:
+    """The fused-kernel name a batched objective routes through, or None.
+
+    The sweep megakernel runs the fused objective's row body inside its
+    kernel, so only a name with such a body (kernels/fused_obj.py) that no
+    `register_batched_vg` call shadows qualifies: a registered evaluator is
+    an opaque callable."""
+    name = getattr(bobj, "name", None)
+    if name is None or name in _BATCHED_VG:
+        return None
+    return name if name in kernel_ops.FUSED_OBJECTIVES else None
+
+
 class BatchedObjective:
     """A scalar objective lifted to whole-batch evaluation.
 

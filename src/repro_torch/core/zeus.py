@@ -205,6 +205,22 @@ def zeus(
     )
 
 
+def zeus_jit(f: Callable, dim: int, lower: float, upper: float,
+             opts: ZeusOptions = ZeusOptions(), *, device="cuda"):
+    """A `(generator=None, draws=None) -> ZeusResult` closure over one
+    configuration, the counterpart of the reference's jitted `key ->
+    ZeusResult`. Eager torch compiles nothing, so the closure only fixes
+    the arguments: each call runs `zeus` as it is (its kernels build once,
+    at their first launch)."""
+
+    def run(generator: Optional[torch.Generator] = None,
+            draws: Optional[Draws] = None) -> ZeusResult:
+        return zeus(f, dim, lower, upper, opts, device=device, generator=generator,
+                    draws=draws)
+
+    return run
+
+
 def _warn_if_all_lanes_failed(res: BFGSResult, n_lanes: int):
     """RuntimeWarning when the solve ends with EVERY lane failed: best_x is
     then the least-bad failed iterate."""

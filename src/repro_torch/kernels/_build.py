@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("fused_obj", "pso_step", "direction", "bfgs_update", "meanfield_step")
+SOURCES = ("fused_obj", "pso_step", "direction", "bfgs_update", "meanfield_step",
+           "sweep_megakernel")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -59,6 +60,11 @@ SIGNATURES = {
                                 [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
     "meanfield_step_launch": ("meanfield_step",
                               [_P, _P, _P, _P, _F, _F, _F, _I, _P, _P, _I, _I, _P]),
+    "sweep_megakernel_full_launch": (
+        "sweep_megakernel",
+        [_I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "sweep_megakernel_commit_launch": (
+        "sweep_megakernel", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
 }
 
 # ptxas/nvcc output of the last build in this process, by source
@@ -80,7 +86,7 @@ def _nvcc() -> str:
 
 def _library_path(stem: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f"{stem}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{stem}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
@@ -135,15 +141,17 @@ def library(stem: str) -> ctypes.CDLL:
     return lib
 
 
-def check_tensor(op: str, arg: str, t, shape, device=None) -> None:
-    """Raise unless `t` is a contiguous float32 CUDA tensor of `shape` (on
-    `device` when given): the kernels take nothing else."""
+def check_tensor(op: str, arg: str, t, shape, device=None,
+                 dtype=torch.float32) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `shape` and `dtype`
+    (float32 unless given; on `device` when given): the kernels take
+    nothing else."""
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{op}: {arg} must be a CUDA tensor")
     if device is not None and t.device != device:
         raise ValueError(f"{op}: {arg} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{op}: {arg} must be float32 (got {t.dtype})")
+    if t.dtype != dtype:
+        raise TypeError(f"{op}: {arg} must be {dtype} (got {t.dtype})")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{op}: {arg} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")

@@ -19,8 +19,9 @@
 // Bound on the H100: bytes. H is read and H' written once, 8·D² bytes a
 // lane, for about 12·D² flops.
 //
-// Design: one block per lane, eight warps. A block cannot hold a large
-// lane's H in its 227 KB of shared memory (fp32 H fits only up to
+// Design: one block per lane, eight warps, running the block-level passes
+// of update.cuh (which the sweep megakernel runs too). A block cannot hold
+// a large lane's H in its 227 KB of shared memory (fp32 H fits only up to
 // D ≈ 220), so H streams from device memory twice:
 //   read 1: each warp takes rows i of H and forms u_i = H[i, :]·δg;
 //           warp 0 then forms s = δg·u (and, unguarded, warp 1 the
@@ -31,12 +32,11 @@
 // δx, δg, g' and u live in dynamic shared memory (16·D bytes). The block
 // reads all of its lane before it writes, so the output may alias H (an
 // in-place update); the wrappers allocate a fresh H' all the same.
-#include "common.cuh"
+#include "update.cuh"
 
 namespace {
 
 using repro::kWarp;
-using repro::warp_sum;
 
 constexpr int kWarps = 8;
 
@@ -61,7 +61,6 @@ bfgs_update_kernel(const float* H, const float* __restrict__ dx,
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   const float* Hb = H + b * D * D;
-  float* Ob = H_out + b * D * D;
 
   for (int j = threadIdx.x; j < D; j += blockDim.x) {
     sdx[j] = dx[b * D + j];
@@ -71,25 +70,15 @@ bfgs_update_kernel(const float* H, const float* __restrict__ dx,
   __syncthreads();
 
   // read 1: u = H δg
-  for (int i = warp; i < D; i += kWarps) {
-    const float* hr = Hb + static_cast<long long>(i) * D;
-    float acc = 0.0f;
-    for (int j = lane; j < D; j += kWarp) acc += hr[j] * sdg[j];
-    acc = warp_sum(acc);
-    if (lane == 0) su[i] = acc;
-  }
+  repro::block_hdg(Hb, sdg, su, D, warp, lane, kWarps);
   __syncthreads();
 
   if (warp == 0) {
-    float acc = 0.0f;
-    for (int j = lane; j < D; j += kWarp) acc += sdg[j] * su[j];
-    acc = warp_sum(acc);
-    if (lane == 0) s_dot = acc;
+    const float s = repro::warp_dot(sdg, su, D, lane);
+    if (lane == 0) s_dot = s;
   } else if (MODE != kGuarded && warp == 1) {
-    float acc = 0.0f;
-    for (int j = lane; j < D; j += kWarp) acc += sdx[j] * sdg[j];
-    acc = warp_sum(acc);
-    if (lane == 0) s_curv = acc;
+    const float c = repro::warp_dot(sdx, sdg, D, lane);
+    if (lane == 0) s_curv = c;
   }
   __syncthreads();
 
@@ -97,23 +86,9 @@ bfgs_update_kernel(const float* H, const float* __restrict__ dx,
   const float coef = rho * rho * s_dot + rho;
 
   // read 2: H' rows (and p' = −H' g')
-  for (int i = warp; i < D; i += kWarps) {
-    const float* hr = Hb + static_cast<long long>(i) * D;
-    float* orow = Ob + static_cast<long long>(i) * D;
-    const float ui = su[i];
-    const float dxi = sdx[i];
-    float acc = 0.0f;
-    for (int j = lane; j < D; j += kWarp) {
-      const float h = hr[j];
-      const float hn = h - rho * (ui * sdx[j] + dxi * su[j]) + coef * (dxi * sdx[j]);
-      orow[j] = hn;
-      if (kDirection) acc += hn * sgn[j];
-    }
-    if (kDirection) {
-      acc = warp_sum(acc);
-      if (lane == 0) p_out[b * D + i] = -acc;
-    }
-  }
+  repro::block_update_rows<kDirection>(Hb, H_out + b * D * D, su, sdx, sgn, rho, coef,
+                                       kDirection ? p_out + b * D : nullptr, D, warp,
+                                       lane, kWarps);
 }
 
 template <int MODE>

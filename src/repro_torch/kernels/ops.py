@@ -17,6 +17,7 @@ import torch
 from repro_torch.kernels import bfgs_update as _bfgs_update
 from repro_torch.kernels import direction as _direction
 from repro_torch.kernels import fused_obj, meanfield_step, pso_step
+from repro_torch.kernels import sweep_megakernel as _sweep
 from repro_torch.kernels.fused_obj import FUSED_OBJECTIVES  # noqa: F401
 
 
@@ -101,9 +102,57 @@ def meanfield_step_update(x, v, xbar, xi, w, drift, sigma, noise="anisotropic"):
     return out
 
 
+# -- sweep megakernel ---------------------------------------------------------
+# Shared-memory cap of the sweep megakernel on the H100. A block may use
+# 232,448 bytes (227 KB) of shared memory. The kernel keeps eight D-vectors
+# (x, p, g, x', g', δx, δg, u) and, for the full sweep, eight trial rows of D
+# and the K trial values in it, (16·D + K)·4 bytes, beside a few scalars
+# (under 64 bytes); H streams from device memory and takes none. So the
+# largest D for a K-rung ladder is (232448 − 64) / 4 − K, over 16:
+# 3629 at the paper's K = 20. A constant of the card, not a device query, so
+# the CPU and the card route alike.
+SMEM_PER_BLOCK = 232_448
+_SMEM_SCALARS = 64
+
+
+def megakernel_max_dim(K: int) -> int:
+    """The largest D the sweep megakernel takes with a K-rung ladder."""
+    return ((SMEM_PER_BLOCK - _SMEM_SCALARS) // 4 - K) // 16
+
+
+MEGAKERNEL_MAX_DIM = megakernel_max_dim(20)
+
+
+def sweep_megakernel_full(name, X, P, G, H, active, rhs, alphas, exhaust_alpha):
+    """ONE launch: ladder + accept + value+grad + guarded H' + p'.
+
+    X/P/G (B, D), H (B, D, D), active (B,) bool, rhs (K, B) the Armijo
+    thresholds (core/linesearch.armijo_thresholds), alphas (K,) the ladder
+    on X's device and exhaust_alpha the float32 α_{K−1}·shrink (the
+    reference takes the numpy ladder instead). Returns
+    (x', f', g', H', p', α, rung)."""
+    if _on_cpu(X):
+        return _sweep.sweep_megakernel_full_plain(name, X, P, G, H, active, rhs, alphas,
+                                                  exhaust_alpha)
+    out = _sweep.sweep_megakernel_full_cuda(name, X, P, G, H, active, rhs, alphas,
+                                            exhaust_alpha)
+    sweep_megakernel_full.launches += 1
+    return out
+
+
+def sweep_megakernel_commit(name, X, P, G, H, active, alpha):
+    """ONE launch: x + α·p, value+grad, guarded H' + p', with α (B,) from the
+    adaptive ladder. Returns (x', f', g', H', p')."""
+    if _on_cpu(X):
+        return _sweep.sweep_megakernel_commit_plain(name, X, P, G, H, active, alpha)
+    out = _sweep.sweep_megakernel_commit_cuda(name, X, P, G, H, active, alpha)
+    sweep_megakernel_commit.launches += 1
+    return out
+
+
 KERNEL_OPS = (fused_value, fused_value_grad, guarded_update_direction,
               bfgs_update, bfgs_update_direction, direction, pso_step_update,
-              meanfield_step_update)
+              meanfield_step_update, sweep_megakernel_full, sweep_megakernel_commit)
 for _op in KERNEL_OPS:
     _op.launches = 0
 

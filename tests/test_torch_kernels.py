@@ -28,6 +28,7 @@ from repro_torch.kernels import (  # noqa: E402
     fused_obj,
     meanfield_step,
     pso_step,
+    sweep_megakernel,
 )
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -158,6 +159,11 @@ def test_cpu_tensors_never_count_launches():
     x = torch.from_numpy(_x("sphere"))
     ops.fused_value("sphere", x)
     ops.fused_value_grad("sphere", x)
+    H = torch.eye(D).expand(N, D, D).contiguous()
+    active = torch.ones(N, dtype=torch.bool)
+    ops.sweep_megakernel_full("sphere", x, -x, 2 * x, H, active, torch.zeros(3, N),
+                              torch.tensor([1.0, 0.5, 0.25]), 0.125)
+    ops.sweep_megakernel_commit("sphere", x, -x, 2 * x, H, active, torch.ones(N))
     assert set(ops.launch_counts().values()) == {0}
 
 
@@ -176,6 +182,12 @@ def test_cpu_tensors_never_count_launches():
     lambda: meanfield_step.meanfield_step_cuda(
         torch.zeros(2, 3), torch.zeros(2, 3), torch.zeros(3), torch.zeros(2, 3),
         0.5, 1.2, 0.3),
+    lambda: sweep_megakernel.sweep_megakernel_full_cuda(
+        "sphere", *(torch.zeros(2, 3) for _ in range(3)), torch.zeros(2, 3, 3),
+        torch.ones(2, dtype=torch.bool), torch.zeros(4, 2), torch.ones(4), 0.5),
+    lambda: sweep_megakernel.sweep_megakernel_commit_cuda(
+        "sphere", *(torch.zeros(2, 3) for _ in range(3)), torch.zeros(2, 3, 3),
+        torch.ones(2, dtype=torch.bool), torch.ones(2)),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper takes CUDA tensors only; the CPU path goes through

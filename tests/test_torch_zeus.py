@@ -285,12 +285,12 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card(entry):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(sweep_mode="per_lane", retry_budget=1), "A11"),
-    (dict(sweep_mode="megakernel"), "A9"),
-    (dict(solver="lbfgs", ladder_len=4), "A8"),
+    (dict(sweep_mode="megakernel", compact_every=1), "A8"),
+    (dict(sweep_mode="megakernel", schedule="auto"), "A8"),
     (dict(phase1="meanfield", schedule="replay"), "A8"),
     (dict(compact_every=1), "A8"),
     (dict(repack_every=1), "A8"),
-    (dict(ladder_len=4), "A8"),
+    (dict(sweep_mode="megakernel", retry_budget=1), "A11"),
     (dict(schedule="auto"), "A8"),
     (dict(retry_budget=1), "A11"),
     (dict(checkpoint_every=2), "A11"),
@@ -313,10 +313,14 @@ def test_unported_options_raise(kw, item):
     dict(solver="lbfgs"),
     dict(solver="lbfgs", sweep_mode="per_lane"),
     dict(phase1="meanfield", meanfield=MeanFieldPSOOptions(n_particles=8, iter_pso=1)),
+    dict(sweep_mode="megakernel"),
+    dict(ladder_len=4),
+    dict(solver="lbfgs", ladder_len=4),
 ], ids=["per_lane", "reference", "pallas", "wolfe", "lbfgs", "lbfgs-per_lane",
-        "meanfield"])
+        "meanfield", "megakernel", "ladder_len", "lbfgs-ladder_len"])
 def test_options_ported_from_the_reference_run(kw):
-    """Options the first slice refused (ROADMAP A7, A10) now solve."""
+    """Options earlier slices refused (ROADMAP A7, A10, A9 and the adaptive
+    ladder of A8) now solve."""
     obj = get_objective("sphere")
     opts = ZeusOptions(pso=PSOOptions(n_particles=8, iter_pso=1), **kw)
     res = zeus(obj.fn, 2, obj.lower, obj.upper, opts, device="cpu")
@@ -354,4 +358,4 @@ def test_port_and_chip_smoke_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert len(modules) >= 22
+    assert len(modules) >= 23
