@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port of ZEUS on one NVIDIA GPU (Hopper).
+"""Smoke run of the PyTorch/CUDA port of ZEUS, and of its LM serving path, on
+one NVIDIA GPU (Hopper).
 
     python3 chip_smoke.py        # from the repository root, on a GPU host
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit, and torch's CUDA version;
-  2. build the six kernel sources from src/repro_torch/kernels/csrc (one
+  2. build the seven kernel sources from src/repro_torch/kernels/csrc (one
      nvcc each, in parallel);
   3. hold each kernel against its plain PyTorch version on the card at the
      shapes its solves give it: B1-B4 at the paper and scale shapes, plus
@@ -18,7 +19,11 @@ Phases (any failure exits non-zero):
      scale: ackley) with frozen lanes, an ackley lane at the origin and an
      uphill lane (rung and α equal but at certified knife edges; H' == H on
      frozen lanes; lanes bitwise equal to the plain version and f', g'
-     bitwise equal to B1b at the kernel's x' counted and printed);
+     bitwise equal to B1b at the kernel's x' counted and printed); B8
+     (flash attention) at the phi3-mini prefill shape (B=4, S=2048,
+     H=KV=32, hd=96, bf16, causal), the starcoder2-15b GQA shape (B=1,
+     S=2048, H=48, KV=4, hd=128, bf16, causal) and two ragged float32
+     shapes (B=2, Sq=Sk=333, H=4, KV=2, hd=64, causal and not);
   4. drive the main paths, `zeus` on "cuda", one solve at a time, with
      every launch counter set to 0 just before each solve and read just
      after, each solve's kernels required to have launched (exact counts
@@ -45,6 +50,32 @@ Phases (any failure exits non-zero):
                         B2 and the ladder's B1a never);
        megakernel-ladder-scale — megakernel-scale with ladder_len=4 (the
                         adaptive ladder, then B5b once per chunk-sweep);
+     and the LM serving path (phi3-mini-3.8b at full width, bf16 weights
+     drawn from torch.Generator("cuda").manual_seed(0)), each run with
+     every counter set to 0 just before and read just after, B8 launched
+     exactly as the path fixes it and no ZEUS kernel at all:
+       lm-prefill     — make_prefill_step(last_only=True), full depth, on
+                        B=4 × S=2048 token ids from a seed: 32 B8 launches a
+                        call (one a layer); warm wall time;
+       lm-generate    — greedy_generate, full depth, B=4, a 32-token
+                        prompt, 16 new tokens, max_seq 48: no B8 launch
+                        (decode attends against the cache); tokens/s;
+       lm-parity      — on lm-generate's prompt, the bf16 full-depth
+                        prefill's last logits (32 B8 launches) and the
+                        decode path's, each against a float32 evaluation of
+                        the same weights (32 more): the prefill no farther
+                        from it than 1.1× the decode path (mean |Δ| / std);
+                        and phi3-mini at full width with 4 layers in
+                        float32 ("highest" matmul precision) on a 256-token
+                        prompt: the prefill's logits at every position (4
+                        B8 launches) against the decode path's, and each
+                        against a float64 evaluation on the host, the
+                        prefill no farther from it than 2× the decode path
+                        (mean |Δ| / std). The prefill-vs-decode differences
+                        (against 5e-3, the JAX test's bound for reduced
+                        configs) and the bf16 argmax agreement are printed:
+                        at this random init the model's own conditioning
+                        sets them (BF16_REF_RATIO, F32_REF_RATIO);
      then (4b), for paper and scale, the first 3 batched sweeps and, for
      the two per-lane pallas solves, the first 3 per-lane sweeps, each from
      the kernel path's state, through the kernels and through the plain
@@ -55,12 +86,15 @@ Phases (any failure exits non-zero):
      within tolerance; time
      cluster_solutions on paper and scale (at scale, on the first 1024 and
      2048 converged lanes: its host loop is O(lanes × clusters)); and
-     (4c) profile each solve once more, device activity only (device-busy
-     share, top kernels);
+     (4c) profile each solve and one lm-prefill call once more, device
+     activity only (device-busy share, top kernels);
   4d. peak device memory of run_multistart at the scale shape (3 sweeps),
      unchunked and with lane_chunk 4096 and 1024: chunking must lower it;
   5. time each kernel with CUDA events beside its plain version, its bound
-     and (direction only) torch.bmm;
+     and the one PyTorch call that computes the same function, where there
+     is one: torch.bmm for B3, scaled_dot_product_attention (timed only;
+     the port never calls it) for B8 at the phi3-mini and starcoder2
+     shapes;
   6. print one JSON line {"kernels": [...]} with the measurements, the
      script's own time, the card's name and power limit, and last
      {"ok": true, "device": {...}}.
@@ -82,6 +116,10 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+# dense bf16 tensor-core peak by the card's name (NVIDIA data sheets); an
+# H100 or H200 SXM part, named "H100 80GB HBM3" or "H200", takes the default
+BF16_PEAK = (("H100 PCIe", 756e12), ("H100 NVL", 835e12))
+BF16_PEAK_DEFAULT = 989e12
 K_LADDER = 20  # BFGSOptions.ls_iters: rows of the Armijo ladder per lane
 SWEEPS_COMPARED = 3
 # kernel vs plain version on identical inputs: |k - p| <= ATOL·scale + RTOL·|p|
@@ -123,6 +161,8 @@ SOURCES = {
                               "src/repro/kernels/sweep_megakernel.py:188"),
     "sweep_megakernel_commit": ("src/repro_torch/kernels/csrc/sweep_megakernel.cu",
                                 "src/repro/kernels/sweep_megakernel.py:225"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:76"),
 }
 # the batched dense-BFGS path's kernels (the PR-12 cells paper and scale)
 BATCHED_KERNELS = ("fused_value", "fused_value_grad", "guarded_update_direction",
@@ -135,12 +175,50 @@ KERNEL_CELLS = {
     "meanfield_step_update": ("meanfield",),
     "sweep_megakernel_full": ("megakernel-paper", "megakernel-scale"),
     "sweep_megakernel_commit": ("megakernel-ladder-scale",),
+    "flash_attention": ("lm-prefill",),
 }
 # the megakernel inputs each of those cells is timed and held on
 MEGAKERNEL_CASE = {"megakernel-paper": "megakernel-paper",
                    "megakernel-scale": "megakernel-scale",
                    "megakernel-ladder-scale": "megakernel-scale"}
 MEANFIELD_RAGGED_N = 100_003  # no multiple of the kernels' 256-thread blocks
+# B8 against its plain version: |k - p| <= tol + tol·|p|. float32: the JAX
+# test's 2e-4. bf16: 1e-2 for unit-normal inputs — the kernel rounds P to
+# bf16 before P·V where the plain version keeps it in float32, and both
+# round the output to bf16, whose ulp at |o| in [1, 2) is 2⁻⁷ ≈ 7.8e-3.
+FLASH_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+# (name, B, Sq, Sk, H, KV, hd, dtype, causal)
+FLASH_CASES = (
+    ("phi3-mini prefill", 4, 2048, 2048, 32, 32, 96, "bfloat16", True),
+    ("starcoder2-15b GQA", 1, 2048, 2048, 48, 4, 128, "bfloat16", True),
+    ("ragged causal", 2, 333, 333, 4, 2, 64, "float32", True),
+    ("ragged non-causal", 2, 333, 333, 4, 2, 64, "float32", False),
+)
+LM_ARCH = "phi3-mini-3.8b"
+PREFILL_B, PREFILL_S = 4, 2048
+GEN_B, GEN_PROMPT, GEN_NEW, GEN_MAX_SEQ = 4, 32, 16, 48
+PARITY_LAYERS, PARITY_B, PARITY_S = 4, 2, 256
+PARITY_TOL = 5e-3  # max |Δ| / std, tests/test_models.py::test_decode_matches_forward
+# bf16 at full depth: printed, with the argmax agreement on rows whose
+# top-2 margin exceeds ARGMAX_MARGIN·std, and required: the prefill (B8)
+# stands no farther from a float32 evaluation of the same weights than
+# BF16_REF_RATIO × the decode path does (mean |Δ| / std). At this random
+# init the bf16 model is chaotic: q, k and v have rms ~10 (the reference's
+# init takes fan_in = shape[-2], the head axis of a (d, H, hd) weight), the
+# attention logits reach the hundreds, and any two bf16 evaluation orders — the
+# flash prefill, the reference's direct prefill, the decode path — end on
+# other argmaxes; so the argmax rule cannot be required here.
+ARGMAX_MARGIN = 1e-2
+BF16_REF_RATIO = 1.1
+# float32 at full width: the same conditioning, unsaturated. Rounding grows
+# fast with depth (on an H100: prefill vs decode 1.0e-4, 1.9e-3 and 4.8e-2
+# of std at 1, 2 and 4 layers, with the reference's direct prefill and the
+# decode path as far from a float64 evaluation as the flash prefill), so
+# the result is printed against PARITY_TOL, and the prefill is required to
+# stand no farther from a float64 evaluation than F32_REF_RATIO × the
+# decode path (mean |Δ| / std, which a few chaotic positions do not sway as
+# they sway the max).
+F32_REF_RATIO = 2.0
 
 
 class SmokeFailure(RuntimeError):
@@ -1045,18 +1123,7 @@ def profile_solves(solve_cfg):
             run_solve(cfg)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        # device-side events only (kernels, memcpy/memset)
-        rows = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        rows = sorted((r for r in rows if r[0] > 0), reverse=True)
-        busy = sum(r[0] for r in rows)
-        if not rows:
-            print(f"profile {sname}: the profiler recorded no device time")
-            continue
-        print(f"profile {sname}: wall {wall_us / 1e3:.1f} ms under the profiler, device "
-              f"busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%)")
-        for t, key, n in rows[:8]:
-            print(f"  {t / 1e3:9.3f} ms {100 * t / busy:5.1f}%  x{n:<6d} {key[:90]}")
+        print_profile(sname, prof, wall_us)
 
 
 def time_kernels(cases_by_solve, solve_cfg):
@@ -1189,6 +1256,336 @@ def time_megakernels(cases):
                   f"{bound_ms:.4f} ms ({bound_by})")
     return timings
 
+# ---------------------------------------------------------------------------
+# the LM serving path: B8 and the phi3-mini runs
+# ---------------------------------------------------------------------------
+def flash_inputs(gen):
+    """Unit-normal q, k, v on the card at each FLASH_CASES shape."""
+    import torch
+
+    cases = {}
+    for name, B, Sq, Sk, H, KV, hd, dtype, causal in FLASH_CASES:
+        dt = getattr(torch, dtype)
+
+        def normal(*shape, dt=dt):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+        cases[name] = dict(q=normal(B, Sq, H, hd), k=normal(B, Sk, KV, hd),
+                           v=normal(B, Sk, KV, hd), causal=causal, dtype=dtype,
+                           scale=hd ** -0.5)
+    return cases
+
+
+def check_flash(cases):
+    """Phase 3, B8: the kernel against its plain version on the same
+    inputs, |k − p| <= tol + tol·|p| with FLASH_TOL by dtype. Returns the
+    max abs error of each case."""
+    import torch
+    from repro_torch.kernels import flash_attention
+
+    errors = {}
+    for name, c in cases.items():
+        args = (c["q"], c["k"], c["v"])
+        o = flash_attention.flash_attention_cuda(*args, causal=c["causal"], scale=c["scale"])
+        p = flash_attention.flash_attention_plain(*args, causal=c["causal"], scale=c["scale"])
+        tol = FLASH_TOL[c["dtype"]]
+        err = (o.double() - p.double()).abs()
+        worst = float((err / (tol + tol * p.double().abs())).max())
+        require(bool(torch.isfinite(o).all()) and worst <= 1.0,
+                f"B8 {name}: kernel disagrees with plain (max abs err {float(err.max()):.3g}, "
+                f"{worst:.3g} of the tolerance)")
+        errors[name] = float(err.max())
+        B, Sq, H, hd = c["q"].shape
+        print(f"check B8 {name} B={B} Sq={Sq} Sk={c['k'].shape[1]} H={H} KV={c['k'].shape[2]}"
+              f" hd={hd} {c['dtype']} causal={c['causal']}: max_abs_err {errors[name]:.3g} "
+              f"({worst:.3g} of tol {tol:g} + {tol:g}·|p|)")
+    torch.cuda.synchronize()
+    return errors
+
+
+def lm_model(seed, num_layers=None, dtype="bfloat16"):
+    """LM_ARCH at full width (num_layers, if given, cut the depth), weights
+    drawn on the card from a seeded generator in `dtype`, which is also
+    the compute dtype."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(LM_ARCH)
+    cfg = dataclasses.replace(cfg, num_layers=num_layers or cfg.num_layers, dtype=dtype)
+    model = build_model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(seed), getattr(torch, dtype),
+                        device="cuda")
+    return model, params
+
+
+def token_ids(vocab, shape, seed):
+    import torch
+
+    return torch.randint(0, vocab, shape, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(seed))
+
+
+def check_lm_launches(run, counts, flash):
+    """B8 launched exactly `flash` times and no ZEUS kernel at all."""
+    for k, n in counts.items():
+        want = flash if k == "flash_attention" else 0
+        require(n == want, f"{run}: kernel {k} launched {n} times, expected {want}")
+
+
+def decode_logits(model, params, tokens):
+    """The decode path's logits at every position of `tokens` (B, S): one
+    decode_step a token into a float32 cache of length S. (B, S, V) fp32."""
+    import torch
+    from repro_torch.models.transformer import materialize_cache
+
+    B, S = tokens.shape
+    cache = materialize_cache(model.cache_specs(B, S, torch.float32), tokens.device)
+    out = []
+    for i in range(S):
+        logits, cache = model.decode_step(params, cache, tokens[:, i:i + 1], i)
+        out.append(logits[:, 0].float())
+    return torch.stack(out, dim=1)
+
+
+def reference_logits(model, params, tokens, dtype, device):
+    """`model`'s logits at every position evaluated in `dtype` on `device`
+    ("highest" matmul precision), from its parameters cast there: the same
+    function with finer rounding, the yardstick of both serving paths. On
+    the CPU, attention takes B8's plain version."""
+    import torch
+    from repro_torch.models import layers, transformer
+    from repro_torch.models.common import tree_map
+
+    cfg = model.cfg
+    p = tree_map(lambda t: t.to(device=device, dtype=dtype), params, is_leaf=torch.is_tensor)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        x = model._embed_in(p, {"tokens": tokens.to(device)}, dtype)
+        pos = torch.arange(x.shape[1], dtype=torch.int32, device=device)
+        for pl in model._layers(p["blocks"]):
+            x = transformer.attn_block_forward(pl, x, pos, cfg)
+        x = layers.apply_norm(p["final_norm"], x, cfg.norm_kind)
+        return layers.unembed(p["embed"], x, cfg)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def timed(fn, run, flash):
+    """(result, wall s, launch counts) of fn(), counters set to 0 just
+    before and read just after, the launches checked."""
+    import torch
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check_lm_launches(run, counts, flash)
+    return out, wall, counts
+
+
+def run_lm():
+    """Phase 4, the LM serving path: lm-prefill, lm-generate and lm-parity
+    (and lm-prefill's phase 4c profile). Returns each run's launch counts."""
+    import torch
+    from repro_torch.serve.decode import greedy_generate, make_prefill_step
+
+    t0 = time.perf_counter()
+    model, params = lm_model(seed=0)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    L, V = cfg.num_layers, cfg.vocab_size
+    print(f"lm {LM_ARCH}: {model.n_params()} parameters in bf16, {L} layers, drawn in "
+          f"{time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          "allocated")
+    launches = {}
+
+    prefill = make_prefill_step(model, last_only=True)
+    batch = {"tokens": token_ids(V, (PREFILL_B, PREFILL_S), 1)}
+    _, cold, _ = timed(lambda: prefill(params, batch), "lm-prefill (cold)", L)
+    logits, warm, launches["lm-prefill"] = timed(lambda: prefill(params, batch),
+                                                 "lm-prefill", L)
+    require(tuple(logits.shape) == (PREFILL_B, 1, V) and bool(torch.isfinite(logits).all()),
+            f"lm-prefill: logits {tuple(logits.shape)} not ({PREFILL_B}, 1, {V}) and finite")
+    print(f"lm lm-prefill: B={PREFILL_B} S={PREFILL_S}: wall {cold:.4f} s cold, {warm:.4f} s "
+          f"warm ({PREFILL_B * PREFILL_S / warm:.0f} prompt tokens/s); logits "
+          f"{tuple(logits.shape)} finite; launches {json.dumps(launches['lm-prefill'])}")
+
+    prompt = token_ids(V, (GEN_B, GEN_PROMPT), 2)
+    gen = lambda: greedy_generate(model, params, prompt, GEN_NEW, GEN_MAX_SEQ)  # noqa: E731
+    _, cold, _ = timed(gen, "lm-generate (cold)", 0)
+    toks, warm, launches["lm-generate"] = timed(gen, "lm-generate", 0)
+    require(tuple(toks.shape) == (GEN_B, GEN_NEW) and bool(((toks >= 0) & (toks < V)).all()),
+            f"lm-generate: tokens {tuple(toks.shape)} not ({GEN_B}, {GEN_NEW}) ids")
+    steps = GEN_PROMPT + GEN_NEW - 1
+    print(f"lm lm-generate: B={GEN_B}, prompt {GEN_PROMPT}, {GEN_NEW} new, max_seq "
+          f"{GEN_MAX_SEQ}: {steps} decode steps, wall {cold:.4f} s cold, {warm:.4f} s warm "
+          f"({GEN_B * GEN_NEW / warm:.1f} new tokens/s, {warm / steps * 1e3:.2f} ms a step); "
+          f"launches {json.dumps(launches['lm-generate'])}")
+
+    # bf16, full depth: the prefill's last logits (through B8) and the decode
+    # path's, each against a float32 evaluation of the same weights
+    last, _, counts = timed(lambda: prefill(params, {"tokens": prompt}), "lm-parity bf16", L)
+    last = last[:, 0].float()
+    dec = decode_logits(model, params, prompt)[:, -1]
+    ref, _, ref_counts = timed(
+        lambda: reference_logits(model, params, prompt, torch.float32, "cuda")[:, -1],
+        "lm-parity bf16 (float32 evaluation)", L)
+    std = float(last.std())
+    rel = float((last - dec).abs().max()) / std
+    top2 = torch.topk(last, 2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]) / std
+    decided = margin > ARGMAX_MARGIN
+    agree = last.argmax(-1) == dec.argmax(-1)
+    ref_std = float(ref.std())
+    d_pre = float((last - ref).abs().mean()) / ref_std
+    d_dec = float((dec - ref).abs().mean()) / ref_std
+    print(f"lm lm-parity bf16, {L} layers, prompt {GEN_PROMPT}, B={GEN_B}: prefill vs decode "
+          f"last logits max|Δ|/std {rel:.4g}, mean|Δ|/std "
+          f"{float((last - dec).abs().mean()) / std:.4g}; argmax equal on "
+          f"{int(agree.sum())} of {GEN_B} rows, on {int(agree[decided].sum())} of the "
+          f"{int(decided.sum())} whose top-2 margin exceeds {ARGMAX_MARGIN}·std (margins/std "
+          f"{[round(m, 4) for m in margin.tolist()]}); against the float32 evaluation: "
+          f"mean|Δ|/std prefill {d_pre:.4g}, decode {d_dec:.4g}, argmax equal on "
+          f"{int((last.argmax(-1) == ref.argmax(-1)).sum())} and "
+          f"{int((dec.argmax(-1) == ref.argmax(-1)).sum())} of {GEN_B} rows; launches "
+          f"{json.dumps(counts)}, float32 evaluation {json.dumps(ref_counts)}")
+    require(math.isfinite(d_pre) and d_pre <= BF16_REF_RATIO * d_dec,
+            f"lm-parity bf16: the prefill's last logits stand {d_pre:.4g} of std from the "
+            f"float32 evaluation, more than {BF16_REF_RATIO}× the decode path's {d_dec:.4g}")
+    del ref
+
+    profile_lm_prefill(prefill, params, batch)  # phase 4c
+    del model, params, prefill, logits
+    torch.cuda.empty_cache()
+
+    # float32, 4 layers: the prefill's logits at every position against the
+    # decode path's, and each against a float64 evaluation on the host
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        model, params = lm_model(seed=4, num_layers=PARITY_LAYERS, dtype="float32")
+        tokens = token_ids(V, (PARITY_B, PARITY_S), 5)
+        full, _, launches["lm-parity"] = timed(
+            lambda: make_prefill_step(model, last_only=False)(params, {"tokens": tokens}),
+            "lm-parity float32", PARITY_LAYERS)
+        dec = decode_logits(model, params, tokens)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    t0 = time.perf_counter()
+    ref = reference_logits(model, params, tokens, torch.float64, "cpu")
+    ref_s = time.perf_counter() - t0
+    std = float(ref.std())
+    gap = float((full - dec).abs().max()) / std
+    d_pre, d_dec = ((x.cpu().double() - ref).abs() / std for x in (full, dec))
+    print(f"lm lm-parity float32, {PARITY_LAYERS} layers, B={PARITY_B} S={PARITY_S}: "
+          f"prefill vs decode logits at every position max|Δ|/std {gap:.4g} ("
+          f"{'<' if gap < PARITY_TOL else '>='} {PARITY_TOL}); against a float64 evaluation "
+          f"on the host ({ref_s:.1f} s), mean|Δ|/std prefill {float(d_pre.mean()):.4g}, decode "
+          f"{float(d_dec.mean()):.4g}, max|Δ|/std prefill {float(d_pre.max()):.4g}, decode "
+          f"{float(d_dec.max()):.4g}; launches {json.dumps(launches['lm-parity'])}")
+    require(bool(torch.isfinite(d_pre).all())
+            and float(d_pre.mean()) <= F32_REF_RATIO * float(d_dec.mean()),
+            f"lm-parity float32: the prefill's logits stand {float(d_pre.mean()):.4g} of std "
+            f"from the float64 evaluation on average, more than {F32_REF_RATIO}× the decode "
+            f"path's {float(d_dec.mean()):.4g}")
+    del model, params, full, dec
+    torch.cuda.empty_cache()
+    return launches
+
+
+def print_profile(label, prof, wall_us):
+    """Device-busy share of the wall and the top kernels by device time."""
+    import torch
+
+    rows = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    if not rows:
+        print(f"profile {label}: the profiler recorded no device time")
+        return
+    busy = sum(r[0] for r in rows)
+    print(f"profile {label}: wall {wall_us / 1e3:.1f} ms under the profiler, device "
+          f"busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%)")
+    for t, key, n in rows[:8]:
+        print(f"  {t / 1e3:9.3f} ms {100 * t / busy:5.1f}%  x{n:<6d} {key[:90]}")
+
+
+def profile_lm_prefill(prefill, params, batch):
+    """Phase 4c for lm-prefill: one warm call under torch.profiler, device
+    activity only."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    print_profile("lm-prefill", prof, wall_us)
+
+
+def bf16_peak(card: str) -> float:
+    return next((peak for name, peak in BF16_PEAK if name in card), BF16_PEAK_DEFAULT)
+
+
+def flash_bound(c, card):
+    """(bound_ms, bound_by) of B8 on case c: q, k, v read once and o written
+    once over 3.35 TB/s, against 4·hd FLOPs for each (q, k) pair the mask
+    keeps over the card's dense peak for the dtype (bf16 tensor cores; fp32
+    outside them)."""
+    B, Sq, H, hd = c["q"].shape
+    Sk, KV = c["k"].shape[1], c["k"].shape[2]
+    nbytes = (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd) * c["q"].element_size()
+    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if c["causal"] else Sq * Sk
+    ops = 4 * hd * B * H * pairs
+    peak = bf16_peak(card) if c["dtype"] == "bfloat16" else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_flash(cases, card):
+    """Phase 5, B8 at the phi3-mini prefill shape (the lm-prefill cell) and
+    the starcoder2 GQA shape: kernel and plain version in turns, and
+    scaled_dot_product_attention on the same inputs as the library time
+    (with enable_gqa where KV < H), its largest difference from the plain
+    version printed."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention
+
+    timings = {}
+    for name, cell in (("phi3-mini prefill", "lm-prefill"), ("starcoder2-15b GQA", None)):
+        c = cases[name]
+        q, k, v, scale = c["q"], c["k"], c["v"], c["scale"]
+        H, KV = q.shape[2], k.shape[2]
+        kern = lambda: flash_attention.flash_attention_cuda(q, k, v, causal=True,  # noqa: E731
+                                                            scale=scale)
+        plain = lambda: flash_attention.flash_attention_plain(q, k, v, causal=True,  # noqa: E731
+                                                              scale=scale)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            scale=scale, enable_gqa=KV < H).transpose(1, 2)
+        lib_err = float((lib().double() - plain().double()).abs().max())
+        p1, k1, k2, p2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
+        lib_ms = time_ms(lib)
+        bound_ms, bound_by = flash_bound(c, card)
+        print(f"time B8 {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), scaled_dot_product_attention "
+              f"{lib_ms:.4f} ms (max abs diff from plain {lib_err:.3g})")
+        if cell:
+            timings["flash_attention", cell] = dict(
+                ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+    return timings
+
 
 def main() -> int:
     import torch
@@ -1240,10 +1637,15 @@ def main() -> int:
     errors.update(check_new_kernels(new_cases))
     mk_cases = megakernel_cases(solve_cfg, gen)
     errors.update(check_megakernels(mk_cases))
+    fl_cases = flash_inputs(gen)
+    errors["flash_attention", "lm-prefill"] = (
+        check_flash(fl_cases)["phi3-mini prefill"], 0.0, True)
 
     print(f"[{time.perf_counter() - t_start:.1f} s] kernels checked")
     launches = run_solves(solve_cfg)  # phase 4
     print(f"[{time.perf_counter() - t_start:.1f} s] solves done")
+    launches.update(run_lm())  # phase 4, the LM serving path (with its 4c profile)
+    print(f"[{time.perf_counter() - t_start:.1f} s] LM runs done")
     chunk_memory()  # phase 4d
     profile_solves(solve_cfg)  # phase 4c
     print(f"[{time.perf_counter() - t_start:.1f} s] solves profiled")
@@ -1251,6 +1653,7 @@ def main() -> int:
                for k, t in per.items()}  # phase 5
     timings.update(time_new_kernels(new_cases))
     timings.update(time_megakernels(mk_cases))
+    timings.update(time_flash(fl_cases, smi))
     print(f"[{time.perf_counter() - t_start:.1f} s] kernels timed")
 
     entries = []

@@ -1,0 +1,18 @@
+"""starcoder2-15b — 40L d_model=6144 48H (GQA kv=4) d_ff=24576 vocab=49152.
+GQA, RoPE, LayerNorm + plain-GELU MLP. [arXiv:2402.19173; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-15b",
+    family="dense",
+    num_layers=40,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=4,
+    d_ff=24576,
+    vocab_size=49152,
+    rope_theta=100_000.0,
+    mlp_kind="gelu",
+    norm_kind="layernorm",
+    source="[arXiv:2402.19173; hf]",
+)

@@ -1,12 +1,15 @@
-"""Carry solver state between the JAX package and the port through numpy.
+"""Carry solver state and LM weights between the JAX package and the port
+through numpy.
 
 ZEUS holds no weights; what crosses between the two packages is solver
 state. Each `*_from_numpy` takes a NamedTuple or dict of numpy arrays (what
 `jax.device_get` returns for the reference's SwarmState, BatchLanes, Lane
 stack, LBFGSMemory, MeanFieldState or BFGSResult) and builds the port's
 tensors on a given device; `result_to_numpy` and `state_to_numpy` go the
-other way. Nothing here imports JAX: the parity tests use this module to
-start the port from the exact reference state.
+other way. `lm_params_from_numpy` carries the LM substrate's parameter tree
+(the reference's `Model.init`, stacked `layers` axis included). Nothing
+here imports JAX: the parity tests use this module to start the port from
+the exact reference state and weights.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from repro_torch.core.engine import BatchLanes, BFGSResult, Lane
 from repro_torch.core.lbfgs import LBFGSMemory
 from repro_torch.core.meanfield import MeanFieldState
 from repro_torch.core.pso import SwarmState
+from repro_torch.models.registry import Model
 
 
 _MISSING = object()
@@ -115,3 +119,35 @@ def result_from_numpy(res, device="cpu") -> BFGSResult:
 def result_to_numpy(res: BFGSResult) -> BFGSResult:
     """The port's BFGSResult with every tensor moved to a numpy array."""
     return state_to_numpy(res)
+
+
+def _weight(a, device, dtype):
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+        t = torch.from_numpy(np.array(arr.view(np.int16), order="C")).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, order="C"))
+    return t.to(device=device, dtype=dtype)
+
+
+def lm_params_from_numpy(tree, cfg, device, dtype=None):
+    """The reference's LM parameter tree (`Model.init` after
+    `jax.device_get`: nested dicts of numpy arrays, block weights stacked on
+    a leading `layers` axis) as the port's, on `device`, each leaf cast to
+    `dtype` if given. Raises unless the tree has exactly the leaves and
+    shapes of the port's Model(cfg)."""
+    specs = Model(cfg).specs
+
+    def walk(spec_node, node, path):
+        if not isinstance(spec_node, Mapping):
+            if tuple(np.shape(node)) != tuple(spec_node.shape):
+                raise ValueError(f"{'/'.join(path)}: shape {np.shape(node)}, expected "
+                                 f"{spec_node.shape}")
+            return _weight(node, device, dtype)
+        if not isinstance(node, Mapping) or set(node) != set(spec_node):
+            got = sorted(node) if isinstance(node, Mapping) else type(node).__name__
+            raise KeyError(f"{'/'.join(path) or 'params'}: keys {got}, expected "
+                           f"{sorted(spec_node)}")
+        return {k: walk(spec_node[k], node[k], path + (k,)) for k in sorted(spec_node)}
+
+    return walk(specs, tree, ())

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("fused_obj", "pso_step", "direction", "bfgs_update", "meanfield_step",
-           "sweep_megakernel")
+           "sweep_megakernel", "flash_attention")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -65,6 +65,8 @@ SIGNATURES = {
         [_I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "sweep_megakernel_commit_launch": (
         "sweep_megakernel", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "flash_attention_launch": ("flash_attention",
+                               [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
 }
 
 # ptxas/nvcc output of the last build in this process, by source

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import bfgs_update as _bfgs_update
 from repro_torch.kernels import direction as _direction
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_obj, meanfield_step, pso_step
 from repro_torch.kernels import sweep_megakernel as _sweep
 from repro_torch.kernels.fused_obj import FUSED_OBJECTIVES  # noqa: F401
@@ -150,9 +151,22 @@ def sweep_megakernel_commit(name, X, P, G, H, active, alpha):
     return out
 
 
+# -- flash attention -----------------------------------------------------------
+def flash_attention(q, k, v, *, causal=True, scale=None):
+    """Flash attention: q (B, Sq, H, hd), k/v (B, Sk, KV, hd) -> (B, Sq, H,
+    hd), GQA via H % KV == 0; bf16 or float32, fp32 softmax state, output
+    in q's dtype. Any Sq, Sk: the kernel masks ragged tiles itself."""
+    if _on_cpu(q):
+        return _flash.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    out = _flash.flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+    flash_attention.launches += 1
+    return out
+
+
 KERNEL_OPS = (fused_value, fused_value_grad, guarded_update_direction,
               bfgs_update, bfgs_update_direction, direction, pso_step_update,
-              meanfield_step_update, sweep_megakernel_full, sweep_megakernel_commit)
+              meanfield_step_update, sweep_megakernel_full, sweep_megakernel_commit,
+              flash_attention)
 for _op in KERNEL_OPS:
     _op.launches = 0
 

@@ -25,6 +25,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     bfgs_update,
     direction,
+    flash_attention,
     fused_obj,
     meanfield_step,
     pso_step,
@@ -164,6 +165,8 @@ def test_cpu_tensors_never_count_launches():
     ops.sweep_megakernel_full("sphere", x, -x, 2 * x, H, active, torch.zeros(3, N),
                               torch.tensor([1.0, 0.5, 0.25]), 0.125)
     ops.sweep_megakernel_commit("sphere", x, -x, 2 * x, H, active, torch.ones(N))
+    ops.flash_attention(torch.zeros(1, 4, 2, 16), torch.zeros(1, 4, 1, 16),
+                        torch.zeros(1, 4, 1, 16))
     assert set(ops.launch_counts().values()) == {0}
 
 
@@ -188,6 +191,7 @@ def test_cpu_tensors_never_count_launches():
     lambda: sweep_megakernel.sweep_megakernel_commit_cuda(
         "sphere", *(torch.zeros(2, 3) for _ in range(3)), torch.zeros(2, 3, 3),
         torch.ones(2, dtype=torch.bool), torch.ones(2)),
+    lambda: flash_attention.flash_attention_cuda(*(torch.zeros(1, 4, 2, 16) for _ in range(3))),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper takes CUDA tensors only; the CPU path goes through
