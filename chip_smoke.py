@@ -181,18 +181,30 @@ KERNEL_CELLS = {
 MEGAKERNEL_CASE = {"megakernel-paper": "megakernel-paper",
                    "megakernel-scale": "megakernel-scale",
                    "megakernel-ladder-scale": "megakernel-scale"}
+# B5/B5b above the single-read threshold (ops.megakernel_smem_dim): the
+# two streaming passes over H, held on every run beside the single-read
+# shapes (paper D = 5 through cp.async, scale D = 128 through a bulk copy)
+STREAMING_CASE = ("megakernel-streaming", "ackley", 64, 300)
 MEANFIELD_RAGGED_N = 100_003  # no multiple of the kernels' 256-thread blocks
 # B8 against its plain version: |k - p| <= tol + tol·|p|. float32: the JAX
 # test's 2e-4. bf16: 1e-2 for unit-normal inputs — the kernel rounds P to
 # bf16 before P·V where the plain version keeps it in float32, and both
 # round the output to bf16, whose ulp at |o| in [1, 2) is 2⁻⁷ ≈ 7.8e-3.
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+# The bf16 cases beyond the two LM shapes hold the TMA path at its edges:
+# ragged lengths (TMA zero-fills rows past S, which the kernel still masks),
+# Sq != Sk, and the head dims whose rows take a 32- or 64-byte swizzle.
 # (name, B, Sq, Sk, H, KV, hd, dtype, causal)
 FLASH_CASES = (
     ("phi3-mini prefill", 4, 2048, 2048, 32, 32, 96, "bfloat16", True),
     ("starcoder2-15b GQA", 1, 2048, 2048, 48, 4, 128, "bfloat16", True),
     ("ragged causal", 2, 333, 333, 4, 2, 64, "float32", True),
     ("ragged non-causal", 2, 333, 333, 4, 2, 64, "float32", False),
+    ("bf16 ragged causal", 2, 333, 333, 4, 2, 64, "bfloat16", True),
+    ("bf16 ragged non-causal", 2, 333, 333, 4, 2, 64, "bfloat16", False),
+    ("bf16 Sq != Sk", 2, 200, 333, 4, 2, 128, "bfloat16", False),
+    ("bf16 hd 16", 2, 333, 333, 4, 2, 16, "bfloat16", True),
+    ("bf16 hd 32", 2, 333, 333, 4, 2, 32, "bfloat16", True),
 )
 LM_ARCH = "phi3-mini-3.8b"
 PREFILL_B, PREFILL_S = 4, 2048
@@ -627,7 +639,8 @@ def megakernel_cases(solve_cfg, gen):
     frozen, lane 0 at the origin with p = 0 (ackley's gradient is NaN
     there), lane 1 uphill (p = g) so that its ladder may run out, and the
     Armijo thresholds as the staged ladder computes them. The paper shape
-    has one case per fused objective; the scale shape runs ackley."""
+    has one case per fused objective; the scale shape runs ackley, and
+    STREAMING_CASE holds D above the single-read threshold."""
     import torch
     from repro_torch.core import get_objective
     from repro_torch.core.linesearch import exhaustion_alpha, ladder_thresholds
@@ -660,6 +673,8 @@ def megakernel_cases(solve_cfg, gen):
             # the solve's own objective is the one timed
             cases[cell, objective] = case(objective, C, cfg["dim"],
                                           objective == cfg["objective"])
+    cell, objective, C, dim = STREAMING_CASE
+    cases[cell, objective] = case(objective, C, dim, False)
     return cases
 
 
@@ -673,12 +688,14 @@ def check_megakernels(cases):
     import types
 
     import torch
-    from repro_torch.kernels import fused_obj, sweep_megakernel
+    from repro_torch.kernels import fused_obj, ops, sweep_megakernel
 
     errors = {}
     for (cell, objective), c in cases.items():
         args = (objective, c["X"], c["P"], c["G"], c["H"], c["active"])
         C, dim = c["X"].shape
+        variant = {full: "single-read" if dim <= ops.megakernel_smem_dim(K_LADDER, full)
+                   else "streaming" for full in (True, False)}
         kf = sweep_megakernel.sweep_megakernel_full_cuda(*args, c["rhs"], c["alphas"],
                                                          c["exhaust"])
         pf = sweep_megakernel.sweep_megakernel_full_plain(*args, c["rhs"], c["alphas"],
@@ -728,7 +745,8 @@ def check_megakernels(cases):
             fb, gb = fused_obj.value_grad_cuda(objective, k[0])
             b1b = ((fb.view(torch.int32) == k[1].view(torch.int32))
                    & (gb.view(torch.int32) == k[2].view(torch.int32)).all(1))
-            print(f"check {cell} {objective} {kname} C={C} D={dim}: "
+            print(f"check {cell} {objective} {kname} C={C} D={dim} "
+                  f"({variant[kname.endswith('full')]}): "
                   f"{int(odd.sum()) if kname.endswith('full') else 0} knife-edge "
                   f"rungs; max_abs_err x {ex[0]:.3g} f {ef[0]:.3g} g {eg[0]:.3g}; H'/p' "
                   f"{eh:.3g}/{ep:.3g} of lane scale on {int(well.sum())} "
@@ -1587,6 +1605,18 @@ def time_flash(cases, card):
     return timings
 
 
+def print_ptxas(build_log):
+    """Each kernel's registers, spills and static shared memory from the
+    build's `-Xptxas=-v` output, by entry function."""
+    for stem, log in build_log.items():
+        entry = "?"
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {stem} {entry}: {line.split(':', 1)[-1].strip()}")
+
+
 def main() -> int:
     import torch
 
@@ -1621,10 +1651,7 @@ def main() -> int:
         _build.library(stem)
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(_build.SOURCES)} "
           "kernel sources (parallel nvcc)")
-    for stem, log in _build.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {stem}: {line.strip()}")
+    print_ptxas(_build.BUILD_LOG)
 
     # phase 3
     solve_cfg = solves()

@@ -33,13 +33,33 @@
 //     recomputed here, so the accept decisions are the staged ones;
 //   - f' is row_value and g' grad_row at x' (B1b's bodies);
 //   - the update is update.cuh's block_hdg and block_update_rows (B2's
-//     passes), streaming H from device memory twice.
+//     passes: the same row-to-warp map, lane striding and order of terms).
 // The one reduction that is not the staged path's is δxᵀδg: the staged path
 // takes it with torch.sum, here a warp sums it, so ρ, H' and p' may differ
 // from the staged kernels' in the last bits; rung, α, x', f' and g' do not.
-// Shared memory per block: x, p, g, x', g', δx, δg, u (8·D floats) and, for
-// B5, eight trial rows (8·D) and the K trial values: (16·D + K)·4 bytes.
-// ops.py derives the largest D that fits in the 227 KB a block may have.
+//
+// Two variants, chosen by the lane's D alone (a choice by shape, not a
+// fallback):
+//   - single read, while H fits in the block's shared memory beside the
+//     vectors, (D² + 16·D + K)·4 + 64 <= 232,448 bytes for B5 (D <= 233 at
+//     K = 20) and (D² + 8·D)·4 + 64 <= 232,448 for B5b (D <= 237);
+//     ops.megakernel_smem_dim states the same rule. The block starts the
+//     copy of its lane's H (D²·4 contiguous bytes) into shared memory at the
+//     top, before stages 1–3: one bulk copy on an mbarrier where the lane's H
+//     is 16-byte aligned (D even and an aligned base), else 4-byte cp.async.
+//     The trial fan and its values read only shared memory, so they hide
+//     the copy; the update waits for it and runs block_hdg and
+//     block_update_rows on the shared-memory H. H is read from device
+//     memory once: 8·D² bytes a lane, the bound.
+//   - two streaming passes above that: block_hdg and block_update_rows read
+//     H from device memory, 12·D² bytes a lane.
+// H' is written by coalesced 4-byte warp stores (lane j of a row writes
+// column j, j + 32, …), the order of update.cuh.
+// Shared memory per block: the single-read variant's H (D² floats) first,
+// then x, p, g, x', g', δx, δg, u (8·D floats) and, for B5, eight trial
+// rows (8·D) and the K trial values: (16·D + K)·4 bytes beside H. ops.py
+// derives the largest D that fits in the 227 KB a block may have.
+#include "hopper.cuh"
 #include "objective.cuh"
 #include "update.cuh"
 
@@ -53,6 +73,8 @@ using repro::kWarp;
 
 constexpr int kWarps = 8;
 constexpr float kCurvEps = 1e-10f;  // engine._CURV_EPS
+constexpr long long kSmemPerBlock = 232448;  // the H100's opt-in shared memory a block
+constexpr long long kSmemScalars = 64;       // the kernel's static __shared__ scalars
 
 // One launch's arguments; the pointers of stages 1-3 (rhs, alphas,
 // alpha_out, rung_out) are unused by B5b, alpha_in by B5.
@@ -74,13 +96,21 @@ struct SweepArgs {
   float* alpha_out;
   int* rung_out;
   int B, D, K;
+  int bulk;  // single-read variant: 1 to copy H with one bulk copy, 0 with cp.async
 };
 
-template <int OBJ, bool FULL>
+// whether a lane's H fits in the block's shared memory beside the vectors
+// (ops.megakernel_smem_dim: the largest such D)
+__host__ __device__ constexpr bool h_fits_smem(long long D, long long K, bool full) {
+  return (D * D + (full ? 16 * D + K : 8 * D)) * 4 + kSmemScalars <= kSmemPerBlock;
+}
+
+template <int OBJ, bool FULL, bool SMEM_H>
 __global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a) {
   const int D = a.D;
-  extern __shared__ float smem[];
-  float* sx = smem;
+  extern __shared__ __align__(16) float smem[];
+  float* sH = smem;  // the lane's H, single-read variant only
+  float* sx = SMEM_H ? smem + D * D : smem;
   float* sp = sx + D;
   float* sg = sp + D;
   float* sxn = sg + D;
@@ -89,12 +119,31 @@ __global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a
   float* sdg = sdx + D;
   float* su = sdg + D;
   __shared__ float s_alpha, s_e1, s_s1, s_e2, s_curv, s_dot;
+  __shared__ __align__(8) uint64_t s_h_full;
 
   const long long b = blockIdx.x;
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
+  const float* Hb = a.H + b * D * D;
+  const float alpha_in = FULL ? 0.0f : a.alpha_in[b];  // loads issued up front
+  const bool active = a.active[b] != 0;
+
+  if (SMEM_H) {  // start reading H now; stages 1-4 before the update hide it
+    if (a.bulk) {
+      if (tid == 0) {
+        repro::mbar_init(&s_h_full, 1);
+        repro::mbar_fence_init();
+        const uint32_t bytes = static_cast<uint32_t>(D) * D * 4;
+        repro::mbar_arrive_expect_tx(&s_h_full, bytes);
+        repro::bulk_load(sH, Hb, bytes, &s_h_full);
+      }
+    } else {
+      for (int j = tid; j < D * D; j += nthreads) repro::cp_async_4(sH + j, Hb + j);
+      repro::cp_async_commit();
+    }
+  }
 
   for (int j = tid; j < D; j += nthreads) {
     sx[j] = a.x[b * D + j];
@@ -104,25 +153,28 @@ __global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a
   __syncthreads();
 
   if (FULL) {
-    // stages 1-2: warp w evaluates rungs w, w + kWarps, … in its own row
+    // stages 1-2: warp w evaluates rungs w, w + kWarps, … in its own row and
+    // holds each value against its threshold, loaded ahead of the row's work
+    // (the same fp32 comparison as the staged accept); sF[k] = 1 where rung
+    // k is accepted (a NaN value or threshold accepts nothing)
     float* trial = su + D + warp * D;
     float* sF = su + D + kWarps * D;
     for (int k = warp; k < a.K; k += kWarps) {
       const float alpha_k = a.alphas[k];
+      const float rhs_k = a.rhs[static_cast<long long>(k) * a.B + b];
       for (int j = lane; j < D; j += kWarp) trial[j] = sx[j] + alpha_k * sp[j];
       __syncwarp();
       float e1 = 0.0f, s1 = 0.0f, e2 = 0.0f;
       const float fk = repro::row_value<OBJ>(trial, D, lane, &e1, &s1, &e2);
-      if (lane == 0) sF[k] = fk;
+      if (lane == 0) sF[k] = fk <= rhs_k ? 1.0f : 0.0f;
       __syncwarp();  // every lane has read the row before the next rung
     }
     __syncthreads();
-    // stage 3: the first accepted rung (a NaN value or threshold accepts
-    // nothing), K when none
+    // stage 3: the first accepted rung, K when none
     if (tid == 0) {
       int rung = a.K;
       for (int k = 0; k < a.K; ++k) {
-        if (sF[k] <= a.rhs[static_cast<long long>(k) * a.B + b]) {
+        if (sF[k] != 0.0f) {
           rung = k;
           break;
         }
@@ -133,7 +185,7 @@ __global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a
     }
     __syncthreads();
   }
-  const float alpha = FULL ? s_alpha : a.alpha_in[b];
+  const float alpha = FULL ? s_alpha : alpha_in;
 
   // stage 4: x' = x + α·p, then f and ∇f there
   for (int j = tid; j < D; j += nthreads) {
@@ -169,7 +221,7 @@ __global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a
   }
   __syncthreads();
   const float curv = s_curv;
-  const bool ok = a.active[b] != 0 && isfinite(curv) && curv > kCurvEps;
+  const bool ok = active && isfinite(curv) && curv > kCurvEps;
   const float rho = ok ? 1.0f / curv : 0.0f;
   if (!ok) {  // uniform over the block
     for (int j = tid; j < D; j += nthreads) {
@@ -179,9 +231,22 @@ __global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a
   }
   __syncthreads();
 
-  // the guarded update: B2's two passes over H
-  const float* Hb = a.H + b * D * D;
-  repro::block_hdg(Hb, sdg, su, D, warp, lane, kWarps);
+  // the guarded update: B2's passes, over the shared-memory copy of H or
+  // streaming it from device memory twice
+  const float* Hs = Hb;
+  if (SMEM_H) {
+    if (a.bulk) {
+      repro::mbar_wait(&s_h_full, 0);
+    } else {
+      repro::cp_async_wait_all();
+      __syncthreads();
+    }
+    Hs = sH;
+  }
+  // rows interleaved four at a time from shared memory, where the update is
+  // latency-bound (each row's arithmetic is the one-row loop's)
+  constexpr int kRows = SMEM_H ? 4 : 1;
+  repro::block_hdg<kRows>(Hs, sdg, su, D, warp, lane, kWarps);
   __syncthreads();
   if (warp == 0) {
     const float s = repro::warp_dot(sdg, su, D, lane);
@@ -189,23 +254,23 @@ __global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a
   }
   __syncthreads();
   const float coef = rho * rho * s_dot + rho;
-  repro::block_update_rows<true>(Hb, a.H_out + b * D * D, su, sdx, sgn, rho, coef,
+  repro::block_update_rows<true, kRows>(Hs, a.H_out + b * D * D, su, sdx, sgn, rho, coef,
                                  a.p_out + b * D, D, warp, lane, kWarps);
 }
 
-template <bool FULL>
-int launch(int objective, const SweepArgs& a, cudaStream_t stream) {
-  if (a.B <= 0 || a.D <= 0) return 0;
+template <bool FULL, bool SMEM_H>
+int launch_variant(int objective, const SweepArgs& a, cudaStream_t stream) {
   void (*kernel)(const SweepArgs);
   switch (objective) {
-    case kSphere: kernel = sweep_kernel<kSphere, FULL>; break;
-    case kRastrigin: kernel = sweep_kernel<kRastrigin, FULL>; break;
-    case kRosenbrock: kernel = sweep_kernel<kRosenbrock, FULL>; break;
-    case kAckley: kernel = sweep_kernel<kAckley, FULL>; break;
+    case kSphere: kernel = sweep_kernel<kSphere, FULL, SMEM_H>; break;
+    case kRastrigin: kernel = sweep_kernel<kRastrigin, FULL, SMEM_H>; break;
+    case kRosenbrock: kernel = sweep_kernel<kRosenbrock, FULL, SMEM_H>; break;
+    case kAckley: kernel = sweep_kernel<kAckley, FULL, SMEM_H>; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t floats = FULL ? 16 * static_cast<size_t>(a.D) + a.K
-                             : 8 * static_cast<size_t>(a.D);
+  const size_t floats = (SMEM_H ? static_cast<size_t>(a.D) * a.D : 0) +
+                        (FULL ? 16 * static_cast<size_t>(a.D) + a.K
+                              : 8 * static_cast<size_t>(a.D));
   const size_t smem = floats * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -214,6 +279,14 @@ int launch(int objective, const SweepArgs& a, cudaStream_t stream) {
   }
   kernel<<<a.B, kWarps * kWarp, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool FULL>
+int launch(int objective, SweepArgs a, cudaStream_t stream) {
+  if (a.B <= 0 || a.D <= 0) return 0;
+  if (!h_fits_smem(a.D, a.K, FULL)) return launch_variant<FULL, false>(objective, a, stream);
+  a.bulk = a.D % 2 == 0 && reinterpret_cast<uintptr_t>(a.H) % 16 == 0;
+  return launch_variant<FULL, true>(objective, a, stream);
 }
 
 }  // namespace
@@ -229,7 +302,7 @@ extern "C" int sweep_megakernel_full_launch(
     cudaStream_t stream) {
   if (K <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const SweepArgs a{x, p, g, H, active, rhs, alphas, exhaust_alpha, nullptr, x_out,
-                    f_out, g_out, H_out, p_out, alpha_out, rung_out, B, D, K};
+                    f_out, g_out, H_out, p_out, alpha_out, rung_out, B, D, K, 0};
   return launch<true>(objective, a, stream);
 }
 
@@ -240,6 +313,6 @@ extern "C" int sweep_megakernel_commit_launch(
     const unsigned char* active, const float* alpha, float* x_out, float* f_out,
     float* g_out, float* H_out, float* p_out, int B, int D, cudaStream_t stream) {
   const SweepArgs a{x, p, g, H, active, nullptr, nullptr, 0.0f, alpha, x_out,
-                    f_out, g_out, H_out, p_out, nullptr, nullptr, B, D, 0};
+                    f_out, g_out, H_out, p_out, nullptr, nullptr, B, D, 0, 0};
   return launch<false>(objective, a, stream);
 }

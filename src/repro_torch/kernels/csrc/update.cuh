@@ -3,26 +3,55 @@
 //   H' = H − ρ(u δxᵀ + δx uᵀ) + (ρ²s + ρ) δx δxᵀ,  p' = −H' g',
 // shared by the kernels that update a lane's H: bfgs_update.cu (B2, B7a,
 // B7b) and sweep_megakernel.cu (B5, B5b). One block per lane; the vectors
-// (δx, δg, g', u) lie in shared memory, and H streams from device memory
-// twice: block_hdg reads it for u, block_update_rows again for the H' rows
-// (it needs only u, δx, ρ and s). Every caller runs this one code, so two
-// kernels given the same inputs write the same bits.
+// (δx, δg, g', u) lie in shared memory, and H is read twice: block_hdg
+// reads it for u, block_update_rows again for the H' rows (it needs only u,
+// δx, ρ and s), both from device memory or both from a shared-memory copy
+// (the megakernel's single-read variant). Every caller runs this one code,
+// so two kernels given the same inputs write the same bits.
 #pragma once
 
 #include "common.cuh"
 
 namespace repro {
 
-// su[i] = H[i, :]·sdg for every row i, warp w taking rows w, w + nwarps, …
+// Butterfly sums of R independent values, their shuffles interleaved; each
+// value's sum is warp_sum's, bit for bit.
+template <int R>
+__device__ __forceinline__ void warp_sum_n(float (&v)[R]) {
+#pragma unroll
+  for (int offset = kWarp / 2; offset > 0; offset >>= 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] += __shfl_xor_sync(kFullMask, v[r], offset);
+  }
+}
+
+// su[i] = H[i, :]·sdg for every row i, warp w taking rows w, w + nwarps, …,
+// R of its rows at a time (their sums interleaved, each in the one-row
+// order: lane j adds columns j, j + 32, …, then the butterfly).
+template <int R = 1>
 __device__ __forceinline__ void block_hdg(const float* H, const float* sdg,
                                           float* su, int D, int warp, int lane,
                                           int nwarps) {
-  for (int i = warp; i < D; i += nwarps) {
-    const float* hr = H + static_cast<long long>(i) * D;
-    float acc = 0.0f;
-    for (int j = lane; j < D; j += kWarp) acc += hr[j] * sdg[j];
-    acc = warp_sum(acc);
-    if (lane == 0) su[i] = acc;
+  for (int i0 = warp; i0 < D; i0 += R * nwarps) {
+    const float* hr[R];
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {  // a row past D repeats row D - 1, unstored
+      hr[r] = H + static_cast<long long>(min(i0 + r * nwarps, D - 1)) * D;
+      acc[r] = 0.0f;
+    }
+    for (int j = lane; j < D; j += kWarp) {
+      const float d = sdg[j];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] += hr[r][j] * d;
+    }
+    warp_sum_n<R>(acc);
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (i0 + r * nwarps < D) su[i0 + r * nwarps] = acc[r];
+      }
+    }
   }
 }
 
@@ -35,29 +64,49 @@ __device__ __forceinline__ float warp_dot(const float* a, const float* b, int D,
 }
 
 // The H' rows into O and, with DIRECTION, p'_i = −H'[i, :]·sgn into p_out,
-// warp w taking rows w, w + nwarps, … coef is ρ²s + ρ. O may alias H: each
-// row is read before it is written, by the warp that writes it.
-template <bool DIRECTION>
+// warp w taking rows w, w + nwarps, …, R of them at a time as block_hdg
+// does. coef is ρ²s + ρ. O may alias H: each element is read before it is
+// written, by the lane that writes it.
+template <bool DIRECTION, int R = 1>
 __device__ __forceinline__ void block_update_rows(const float* H, float* O,
                                                   const float* su, const float* sdx,
                                                   const float* sgn, float rho,
                                                   float coef, float* p_out, int D,
                                                   int warp, int lane, int nwarps) {
-  for (int i = warp; i < D; i += nwarps) {
-    const float* hr = H + static_cast<long long>(i) * D;
-    float* orow = O + static_cast<long long>(i) * D;
-    const float ui = su[i];
-    const float dxi = sdx[i];
-    float acc = 0.0f;
+  for (int i0 = warp; i0 < D; i0 += R * nwarps) {
+    const float* hr[R];
+    float* orow[R];
+    float ui[R], dxi[R], acc[R];
+    bool store[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {  // a row past D repeats row D - 1, unstored
+      const int i = i0 + r * nwarps;
+      const int ic = min(i, D - 1);
+      store[r] = i < D;
+      hr[r] = H + static_cast<long long>(ic) * D;
+      orow[r] = O + static_cast<long long>(ic) * D;
+      ui[r] = su[ic];
+      dxi[r] = sdx[ic];
+      acc[r] = 0.0f;
+    }
     for (int j = lane; j < D; j += kWarp) {
-      const float h = hr[j];
-      const float hn = h - rho * (ui * sdx[j] + dxi * su[j]) + coef * (dxi * sdx[j]);
-      orow[j] = hn;
-      if (DIRECTION) acc += hn * sgn[j];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float h = hr[r][j];
+        const float hn =
+            h - rho * (ui[r] * sdx[j] + dxi[r] * su[j]) + coef * (dxi[r] * sdx[j]);
+        if (store[r]) orow[r][j] = hn;
+        if (DIRECTION) acc[r] += hn * sgn[j];
+      }
     }
     if (DIRECTION) {
-      acc = warp_sum(acc);
-      if (lane == 0) p_out[i] = -acc;
+      warp_sum_n<R>(acc);
+      if (lane == 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (store[r]) p_out[i0 + r * nwarps] = -acc[r];
+        }
+      }
     }
   }
 }

@@ -12,6 +12,8 @@ its main path went through the kernels.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import bfgs_update as _bfgs_update
@@ -108,10 +110,9 @@ def meanfield_step_update(x, v, xbar, xi, w, drift, sigma, noise="anisotropic"):
 # 232,448 bytes (227 KB) of shared memory. The kernel keeps eight D-vectors
 # (x, p, g, x', g', δx, δg, u) and, for the full sweep, eight trial rows of D
 # and the K trial values in it, (16·D + K)·4 bytes, beside a few scalars
-# (under 64 bytes); H streams from device memory and takes none. So the
-# largest D for a K-rung ladder is (232448 − 64) / 4 − K, over 16:
-# 3629 at the paper's K = 20. A constant of the card, not a device query, so
-# the CPU and the card route alike.
+# (under 64 bytes). So the largest D for a K-rung ladder is
+# (232448 − 64) / 4 − K, over 16: 3629 at the paper's K = 20. A constant of
+# the card, not a device query, so the CPU and the card route alike.
 SMEM_PER_BLOCK = 232_448
 _SMEM_SCALARS = 64
 
@@ -122,6 +123,20 @@ def megakernel_max_dim(K: int) -> int:
 
 
 MEGAKERNEL_MAX_DIM = megakernel_max_dim(20)
+
+
+def megakernel_smem_dim(K: int, full: bool = True) -> int:
+    """The largest D at which the sweep megakernel reads each lane's H from
+    device memory once: its D² floats fit in shared memory beside the
+    vectors, (D² + 16·D + K)·4 + 64 <= 232,448 bytes for the full sweep (B5,
+    233 at K = 20) and (D² + 8·D)·4 + 64 for the commit (B5b, full=False,
+    237; K unused). Above it the kernel streams H twice. The kernel's launch
+    applies the same rule (csrc/sweep_megakernel.cu, h_fits_smem)."""
+    vectors = (lambda D: 16 * D + K) if full else (lambda D: 8 * D)
+    D = math.isqrt((SMEM_PER_BLOCK - _SMEM_SCALARS) // 4)
+    while D > 0 and (D * D + vectors(D)) * 4 + _SMEM_SCALARS > SMEM_PER_BLOCK:
+        D -= 1
+    return D
 
 
 def sweep_megakernel_full(name, X, P, G, H, active, rhs, alphas, exhaust_alpha):

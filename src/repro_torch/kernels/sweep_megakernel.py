@@ -18,7 +18,9 @@ value+grad at x', `torch.sum` for the curvature, the ρ selects and
 `guarded_update_direction_plain`), so on the CPU the megakernel sweep is
 array-equal to the staged one. Nothing is padded: the JAX kernels pad D to
 the TPU's 128 lanes; these take any D up to the shared-memory cap of
-`ops.megakernel_max_dim`.
+`ops.megakernel_max_dim`. Up to `ops.megakernel_smem_dim` the kernel copies
+each lane's H into shared memory once, above it it streams H twice: a
+choice by shape inside the kernel, with the same results.
 """
 from __future__ import annotations
 

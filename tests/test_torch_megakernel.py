@@ -360,6 +360,20 @@ def test_gate_warns_and_runs_the_batched_sweep(case):
     assert mega.eval_rows == staged.eval_rows
 
 
+@pytest.mark.parametrize("K, full, want", [(20, True, 233), (1, True, 233),
+                                           (20, False, 237)])
+def test_megakernel_smem_dim(K, full, want):
+    """The single-read threshold of B5 (full) and B5b: the largest D whose
+    lane H fits in shared memory beside the vectors. It never exceeds the
+    megakernel's cap, which stays where the streaming kernel put it."""
+    vectors = (lambda D: 16 * D + K) if full else (lambda D: 8 * D)
+    fits = lambda D: (D * D + vectors(D)) * 4 + 64 <= ops.SMEM_PER_BLOCK  # noqa: E731
+    got = ops.megakernel_smem_dim(K, full)
+    assert got == want and fits(got) and not fits(got + 1)
+    assert got <= ops.megakernel_max_dim(K)
+    assert ops.MEGAKERNEL_MAX_DIM == 3629
+
+
 def test_gate_cap_and_rosenbrock(monkeypatch):
     """The cap is the kernel's shared-memory plan; rosenbrock at D = 3 (no
     multiple of the TPU's 128 lanes) runs the megakernel, without warning."""
