@@ -9,10 +9,16 @@ Phases (any failure exits non-zero):
   2. build the seven kernel sources from src/repro_torch/kernels/csrc (one
      nvcc each, in parallel);
   3. hold each kernel against its plain PyTorch version on the card at the
-     shapes its solves give it: B1-B4 at the paper and scale shapes, plus
-     the two bitwise contracts (value-only f == value+grad f; H' == H where
-     ρ = 0) and ackley's NaN gradient at the origin; B7a/B7b at the per-lane
-     shapes with a lane on the engine's stand-in pair (1, …, 1); B6 at the
+     shapes its solves give it: B1, B3 and B4 at the paper, scale and
+     mean-field shapes, with value-only f == value+grad f bitwise and
+     ackley's NaN gradient at the origin; B2, B7a and B7b (one kernel of
+     three variants chosen by D, ops.update_variant) at the paper (512 × 5),
+     scale (16384 × 128) and mean-field (131072 × 8) shapes and at both
+     edges of each variant (300 lanes of D = 32 and 33; 256 of
+     ops.update_smem_dim() and one past it; 64 of D = 300), each with H' ==
+     H bitwise on ρ = 0 lanes, B7b's H' == B7a's bitwise, a B7 lane on the
+     engine's stand-in pair (1, …, 1) finite, and 64 lanes launched alone
+     bitwise equal to the same lanes in the batch; B6 at the
      mean-field shape in both noise modes, with non-finite rows, and at a
      row count that is no multiple of the block (anisotropic bitwise);
      B5/B5b at the megakernel solves' shapes (paper: all four objectives;
@@ -94,7 +100,9 @@ Phases (any failure exits non-zero):
      and the one PyTorch call that computes the same function, where there
      is one: torch.bmm for B3, scaled_dot_product_attention (timed only;
      the port never calls it) for B8 at the phi3-mini and starcoder2
-     shapes;
+     shapes; B2, B7a and B7b at every shape phase 3 holds them at; B3 and
+     torch.bmm at the paper shape in 21 pairs taken in turns (medians and
+     their ratio);
   6. print one JSON line {"kernels": [...]} with the measurements, the
      script's own time, the card's name and power limit, and last
      {"ok": true, "device": {...}}.
@@ -170,6 +178,8 @@ BATCHED_KERNELS = ("fused_value", "fused_value_grad", "guarded_update_direction"
 # the cells at which each kernel is timed, in the kernels line
 KERNEL_CELLS = {
     **{k: ("paper", "scale") for k in BATCHED_KERNELS},
+    **{k: ("paper", "scale", "meanfield")
+       for k in ("fused_value", "fused_value_grad", "guarded_update_direction")},
     "bfgs_update": ("per_lane-paper", "per_lane-scale"),
     "bfgs_update_direction": ("per_lane-scale",),
     "meanfield_step_update": ("meanfield",),
@@ -185,6 +195,19 @@ MEGAKERNEL_CASE = {"megakernel-paper": "megakernel-paper",
 # two streaming passes over H, held on every run beside the single-read
 # shapes (paper D = 5 through cp.async, scale D = 128 through a bulk copy)
 STREAMING_CASE = ("megakernel-streaming", "ackley", 64, 300)
+# B2, B7a and B7b (one kernel, csrc/bfgs_update.cu) at the cells' shapes and
+# at both edges of each variant (ops.update_variant): (label, lanes, D), D
+# None for the single-read threshold ops.update_smem_dim() and one past it
+UPDATE_SHAPES = (("paper", 512, 5), ("scale", 16384, 128), ("meanfield", 131072, 8),
+                 ("small edge", 300, 32), ("single-read first", 300, 33),
+                 ("single-read edge", 256, None), ("streaming first", 256, None),
+                 ("streaming", 64, 300))
+# the update shape at which each cell's B2, B7a or B7b entry is held and timed
+UPDATE_SHAPE_OF = {"paper": "paper", "scale": "scale", "meanfield": "meanfield",
+                   "per_lane-paper": "paper", "per_lane-scale": "scale"}
+UPDATE_KERNELS = ("guarded_update_direction", "bfgs_update", "bfgs_update_direction")
+ALONE_LANES = 64  # lanes launched alone and in the batch, bitwise equal
+B3_PAIRS = 21  # B3 and torch.bmm at the paper shape, timed in turns
 MEANFIELD_RAGGED_N = 100_003  # no multiple of the kernels' 256-thread blocks
 # B8 against its plain version: |k - p| <= tol + tol·|p|. float32: the JAX
 # test's 2e-4. bf16: 1e-2 for unit-normal inputs — the kernel rounds P to
@@ -355,9 +378,9 @@ def solves():
 # ---------------------------------------------------------------------------
 # measurement helpers
 # ---------------------------------------------------------------------------
-def time_ms(fn) -> float:
+def time_ms(fn, target_ms=200.0) -> float:
     """Mean ms per call over a CUDA-event-timed run of back-to-back calls
-    (after warm-up), sized to about 0.2 s."""
+    (after warm-up), sized to about target_ms."""
     import torch
 
     for _ in range(3):
@@ -368,7 +391,7 @@ def time_ms(fn) -> float:
     fn()
     end.record()
     torch.cuda.synchronize()
-    reps = max(5, min(500, int(200.0 / max(start.elapsed_time(end), 1e-3))))
+    reps = max(5, min(500, int(target_ms / max(start.elapsed_time(end), 1e-3))))
     start.record()
     for _ in range(reps):
         fn()
@@ -398,9 +421,8 @@ def compare(kernel_out, plain_out, rtol=RTOL, atol=ATOL):
 
 def kernel_cases(solve, name, dim, gen):
     """The kernels' inputs at the shapes this solve gives them: the Armijo
-    ladder (K·C rows), the commit value+grad (C rows), the BFGS update and
-    first direction (C lanes) and the PSO step (N particles), C being the
-    lane chunk."""
+    ladder (K·C rows), the commit value+grad (C rows), the first direction
+    (C lanes) and the PSO step (N particles), C being the lane chunk."""
     import torch
     from repro_torch.core import get_objective
 
@@ -419,17 +441,9 @@ def kernel_cases(solve, name, dim, gen):
     ladder[0].zero_()  # ackley's origin row: f finite, gradient NaN
     A = 0.1 * normal(C, dim, dim) / math.sqrt(dim)
     H = torch.eye(dim, device="cuda") + 0.5 * (A + A.transpose(1, 2))
-    dx = normal(C, dim)
-    dg = dx * (1.0 + torch.rand(C, dim, generator=gen, device="cuda"))
-    rho = 1.0 / torch.sum(dx * dg, dim=-1)
-    frozen = torch.arange(C, device="cuda") % 7 == 0  # the guard's ρ = 0 lanes
-    rho = torch.where(frozen, 0.0, rho)
-    dx = torch.where(frozen[:, None], 0.0, dx)
-    dg = torch.where(frozen[:, None], 0.0, dg)
     return dict(
-        ladder=ladder, commit=box(C, dim).contiguous(),
-        H=H.contiguous(), dx=dx, dg=dg, g_new=normal(C, dim), rho=rho.contiguous(),
-        frozen=frozen,
+        ladder=ladder, commit=box(C, dim).contiguous(), H=H.contiguous(),
+        g_new=normal(C, dim),
         pso=[box(n, dim), normal(n, dim), box(n, dim), box(dim),
              torch.rand(n, dim, generator=gen, device="cuda"),
              torch.rand(n, dim, generator=gen, device="cuda")],
@@ -450,10 +464,6 @@ def bounds(kname, case, dim, objective):
             nbytes += N * dim * f4
             ops += N * dim * {"sphere": 1, "rastrigin": 5, "rosenbrock": 9,
                               "ackley": 6}[objective]
-    elif kname == "guarded_update_direction":
-        B = case["H"].shape[0]
-        nbytes = 2 * B * dim * dim * f4 + 4 * B * dim * f4 + B * f4
-        ops = B * (2 * dim * dim + 2 * dim + 8 * dim * dim + 2 * dim * dim)
     elif kname == "direction":
         B = case["H"].shape[0]
         nbytes = B * dim * dim * f4 + 2 * B * dim * f4
@@ -467,45 +477,90 @@ def bounds(kname, case, dim, objective):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def new_kernel_cases(gen):
-    """Inputs of B7a/B7b at the per-lane solves' shapes (C = 512 lanes of
-    D = 5, and 16384 lanes of D = 128), lane 0 on the engine's stand-in pair
-    (1, …, 1); and of B6 at the mean-field solve's shape (2^20 × 8) and at a
+def swarm_cases(gen):
+    """Inputs of B6 at the mean-field solve's shape (2^20 × 8) and at a
     ragged row count, with an inf in row 3 and a NaN in row 7."""
     import torch
-
-    def normal(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
-
-    def update(B, D):
-        A = 0.1 * normal(B, D, D) / math.sqrt(D)
-        H = torch.eye(D, device="cuda") + 0.5 * (A + A.transpose(1, 2))
-        dx = normal(B, D)
-        dg = dx * (1.0 + torch.rand(B, D, generator=gen, device="cuda"))
-        dx[0] = 1.0
-        dg[0] = 1.0
-        return dict(H=H.contiguous(), dx=dx, dg=dg, g_new=normal(B, D))
 
     def swarm(N, D):
         x = 5.12 * (2.0 * torch.rand(N, D, generator=gen, device="cuda") - 1.0)
         x[3, 1] = float("inf")
         x[7, 0] = float("nan")
-        return dict(x=x, v=normal(N, D), xbar=normal(D), xi=normal(N, D))
+        return dict(x=x, v=torch.randn(N, D, generator=gen, device="cuda"),
+                    xbar=torch.randn(D, generator=gen, device="cuda"),
+                    xi=torch.randn(N, D, generator=gen, device="cuda"))
 
-    return {"per_lane-paper": update(512, 5), "per_lane-scale": update(16384, 128),
-            "meanfield": swarm(2**20, 8), "meanfield-ragged": swarm(MEANFIELD_RAGGED_N, 8)}
+    return {"meanfield": swarm(2**20, 8), "meanfield-ragged": swarm(MEANFIELD_RAGGED_N, 8)}
 
 
-def new_bounds(kname, case):
-    """bounds() for B7a, B7b and B6, from the case's shapes."""
+def meanfield_bounds(case):
+    """bounds() for B6, from the case's shapes."""
+    N, D = case["x"].shape
+    nbytes = 5 * N * D * 4 + D * 4
+    ops = 8 * N * D  # d, w·v, λ·d, σ·d, ·ξ, two adds, x + v'
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def update_cases(gen):
+    """Inputs of B2, B7a and B7b at UPDATE_SHAPES: H = I + a small symmetric
+    term and g' for all three; for B2 (guarded) every seventh lane frozen
+    (ρ = 0, δx and δg zeroed) and ρ = 1/δxᵀδg elsewhere; for B7a/B7b
+    (unguarded) the same pairs unfrozen, lane 0 on the engine's stand-in
+    pair (1, …, 1)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    smem_dim = ops.update_smem_dim()
+    cases = {}
+    for label, B, D in UPDATE_SHAPES:
+        if D is None:
+            D = smem_dim if label == "single-read edge" else smem_dim + 1
+        A = 0.1 * normal(B, D, D) / math.sqrt(D)
+        H = torch.eye(D, device="cuda") + 0.5 * (A + A.transpose(1, 2))
+        dx = normal(B, D)
+        dg = dx * (1.0 + torch.rand(B, D, generator=gen, device="cuda"))
+        frozen = torch.arange(B, device="cuda") % 7 == 0  # the guard's ρ = 0 lanes
+        rho = torch.where(frozen, 0.0, 1.0 / torch.sum(dx * dg, dim=-1))
+        udx, udg = dx.clone(), dg.clone()
+        udx[0] = 1.0
+        udg[0] = 1.0
+        cases[label] = dict(
+            H=H.contiguous(), g_new=normal(B, D), frozen=frozen, rho=rho.contiguous(),
+            dx=torch.where(frozen[:, None], 0.0, dx), dg=torch.where(frozen[:, None], 0.0, dg),
+            udx=udx, udg=udg)
+    return cases
+
+
+def update_calls(c):
+    """kernel name -> (CUDA wrapper, plain version, arguments) for an
+    update case."""
+    from repro_torch.kernels import bfgs_update as bu
+
+    guarded = (c["H"], c["dx"], c["dg"], c["g_new"], c["rho"])
+    unguarded = (c["H"], c["udx"], c["udg"])
+    return {
+        "guarded_update_direction": (bu.guarded_update_direction_cuda,
+                                     bu.guarded_update_direction_plain, guarded),
+        "bfgs_update": (bu.bfgs_update_cuda, bu.bfgs_update_plain, unguarded),
+        "bfgs_update_direction": (bu.update_direction_cuda, bu.update_direction_plain,
+                                  unguarded + (c["g_new"],)),
+    }
+
+
+def update_bounds(kname, B, D):
+    """bounds() for B2, B7a and B7b at B lanes of D: read H, δx, δg, write H';
+    u = Hδg, s, and 8 ops an entry of H'; B2 also reads g' and ρ and writes
+    p' (2·D² more ops), B7a reduces δxᵀδg, B7b does both."""
     f4 = 4
-    if kname == "meanfield_step_update":
-        N, D = case["x"].shape
-        nbytes = 5 * N * D * f4 + D * f4
-        ops = 8 * N * D  # d, w·v, λ·d, σ·d, ·ξ, two adds, x + v'
+    if kname == "guarded_update_direction":
+        nbytes = 2 * B * D * D * f4 + 4 * B * D * f4 + B * f4
+        ops = B * (12 * D * D + 2 * D)
     else:
-        B, D, _ = case["H"].shape
-        # read H, δx, δg; write H'. u = Hδg, s, δxᵀδg, and 8 ops an entry
         nbytes = 2 * B * D * D * f4 + 2 * B * D * f4
         ops = B * (10 * D * D + 4 * D)
         if kname == "bfgs_update_direction":
@@ -516,13 +571,19 @@ def new_bounds(kname, case):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bitwise_equal(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 def check_kernels(cases_by_solve, solve_cfg):
     """Phase 3: every kernel against its plain version on the card."""
     import torch
-    from repro_torch.kernels import bfgs_update, direction, fused_obj, pso_step
+    from repro_torch.kernels import direction, fused_obj, pso_step
 
     errors = {}
     for sname, case in cases_by_solve.items():
@@ -556,17 +617,6 @@ def check_kernels(cases_by_solve, solve_cfg):
         require(ea[2] and eb[2], f"{sname}: fused_value_grad disagrees")
         results["fused_value_grad"] = (max(ea[0], eb[0]), max(ea[1], eb[1]), True)
 
-        args = (case["H"], case["dx"], case["dg"], case["g_new"], case["rho"])
-        Hk, pk = bfgs_update.guarded_update_direction_cuda(*args)
-        Hp, pp = bfgs_update.guarded_update_direction_plain(*args)
-        frozen = case["frozen"]
-        require(torch.equal(Hk[frozen], case["H"][frozen]),
-                f"{sname}: H' != H bitwise on rho = 0 lanes")
-        eh, ep = compare(Hk, Hp), compare(pk, pp)
-        require(eh[2] and ep[2], f"{sname}: guarded_update_direction disagrees "
-                f"(H {eh[:2]}, p {ep[:2]})")
-        results["guarded_update_direction"] = (max(eh[0], ep[0]), max(eh[1], ep[1]), True)
-
         e = compare(direction.direction_cuda(case["H"], case["g_new"]),
                     direction.direction_plain(case["H"], case["g_new"]))
         require(e[2], f"{sname}: direction disagrees {e[:2]}")
@@ -585,30 +635,60 @@ def check_kernels(cases_by_solve, solve_cfg):
     return errors
 
 
-def check_new_kernels(cases):
-    """Phase 3, B7a/B7b and B6: each kernel against its plain version."""
+def check_updates(cases):
+    """Phase 3, B2, B7a and B7b at every update shape, each in the variant
+    its D selects: against the plain versions; H' == H bitwise on the ρ = 0
+    lanes (B2); B7b's H' == B7a's bitwise; the stand-in lane finite (B7a);
+    and ALONE_LANES lanes launched alone bitwise equal to the same lanes
+    inside the full batch (all three)."""
     import torch
-    from repro_torch.kernels import bfgs_update, meanfield_step
+    from repro_torch.kernels import ops
 
     errors = {}
-    for cell in ("per_lane-paper", "per_lane-scale"):
-        c = cases[cell]
-        args = (c["H"], c["dx"], c["dg"])
-        Hk, Hp = bfgs_update.bfgs_update_cuda(*args), bfgs_update.bfgs_update_plain(*args)
-        e = compare(Hk, Hp)
-        require(e[2], f"{cell}: bfgs_update disagrees with plain {e[:2]}")
-        require(bool(torch.isfinite(Hk[0]).all()), f"{cell}: stand-in lane not finite")
-        errors["bfgs_update", cell] = e
-        Hk2, pk = bfgs_update.update_direction_cuda(*args, c["g_new"])
-        Hp2, pp = bfgs_update.update_direction_plain(*args, c["g_new"])
-        require(torch.equal(Hk2, Hk), f"{cell}: update_direction H' != bfgs_update H'")
-        eh, ep = compare(Hk2, Hp2), compare(pk, pp)
-        require(eh[2] and ep[2], f"{cell}: update_direction disagrees (H {eh[:2]}, "
-                f"p {ep[:2]})")
-        errors["bfgs_update_direction", cell] = (max(eh[0], ep[0]), max(eh[1], ep[1]), True)
-        print(f"check {cell} bfgs_update B={Hk.shape[0]} D={Hk.shape[1]}: max_abs_err "
-              f"{e[0]:.3g}; bfgs_update_direction: {errors['bfgs_update_direction', cell][0]:.3g}"
-              ", same H' bitwise; stand-in lane finite")
+    for label, c in cases.items():
+        B, D = c["g_new"].shape
+        variant = ops.update_variant(D)
+        lo = min(5, B - ALONE_LANES)  # off the small variant's 8-lane blocks
+        alone = slice(lo, lo + ALONE_LANES)
+        outs = {}
+        for kname, (kern, plain, args) in update_calls(c).items():
+            got = kern(*args)
+            want = plain(*args)
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            errs = [compare(k, p) for k, p in zip(got, want)]
+            require(all(e[2] for e in errs), f"update {label} ({variant}): {kname} "
+                    f"disagrees with plain {[e[:2] for e in errs]}")
+            errors[kname, label] = (max(e[0] for e in errs), max(e[1] for e in errs), True)
+            sub = kern(*(t[alone].contiguous() for t in args))
+            sub = sub if isinstance(sub, tuple) else (sub,)
+            require(all(bitwise_equal(k[alone], part) for k, part in zip(got, sub)),
+                    f"update {label} ({variant}): {kname} of lanes {lo}..{lo + ALONE_LANES - 1}"
+                    " alone differs from the same lanes in the batch")
+            outs[kname] = got
+            del want
+        frozen = c["frozen"]
+        require(bitwise_equal(outs["guarded_update_direction"][0][frozen], c["H"][frozen]),
+                f"update {label} ({variant}): H' != H bitwise on rho = 0 lanes")
+        require(bitwise_equal(outs["bfgs_update_direction"][0], outs["bfgs_update"][0]),
+                f"update {label} ({variant}): update_direction H' != bfgs_update H'")
+        require(bool(torch.isfinite(outs["bfgs_update"][0][0]).all()),
+                f"update {label} ({variant}): stand-in lane not finite")
+        del outs
+        torch.cuda.synchronize()
+        print(f"check update {label} B={B} D={D} ({variant}): max_abs_err "
+              + ", ".join(f"{k} {errors[k, label][0]:.3g}" for k in UPDATE_KERNELS)
+              + f"; H' == H bitwise on {int(frozen.sum())} rho = 0 lanes; B7b H' == B7a "
+              f"H' bitwise; stand-in lane finite; lanes {lo}..{lo + ALONE_LANES - 1} alone =="
+              " in batch bitwise")
+    return errors
+
+
+def check_meanfield_step(cases):
+    """Phase 3, B6 against its plain version in both noise modes."""
+    import torch
+    from repro_torch.kernels import meanfield_step
+
+    errors = {}
     for cell in ("meanfield", "meanfield-ragged"):
         c = cases[cell]
         worst = 0.0
@@ -1145,14 +1225,14 @@ def profile_solves(solve_cfg):
 
 
 def time_kernels(cases_by_solve, solve_cfg):
-    """Phase 5: kernel, plain version and library call, timed on the card."""
+    """Phase 5: kernel, plain version and library call, timed on the card at
+    the cells of KERNEL_CELLS."""
     import torch
-    from repro_torch.kernels import bfgs_update, direction, fused_obj, pso_step
+    from repro_torch.kernels import direction, fused_obj, pso_step
 
     timings = {}
     for sname, case in cases_by_solve.items():
         objective, dim = solve_cfg[sname]["objective"], solve_cfg[sname]["dim"]
-        upd = (case["H"], case["dx"], case["dg"], case["g_new"], case["rho"])
         pairs = {
             "fused_value": (
                 lambda: fused_obj.value_grad_cuda(objective, case["ladder"], False),
@@ -1161,10 +1241,6 @@ def time_kernels(cases_by_solve, solve_cfg):
             "fused_value_grad": (
                 lambda: fused_obj.value_grad_cuda(objective, case["commit"]),
                 lambda: fused_obj.value_grad_plain(objective, case["commit"]),
-                None),
-            "guarded_update_direction": (
-                lambda: bfgs_update.guarded_update_direction_cuda(*upd),
-                lambda: bfgs_update.guarded_update_direction_plain(*upd),
                 None),
             "direction": (
                 lambda: direction.direction_cuda(case["H"], case["g_new"]),
@@ -1177,6 +1253,8 @@ def time_kernels(cases_by_solve, solve_cfg):
         }
         timings[sname] = {}
         for kname, (kern, plain, lib) in pairs.items():
+            if sname not in KERNEL_CELLS[kname]:
+                continue
             # plain, kernel, kernel, plain: compare within one call, in turns
             p1, k1, k2, p2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
             lib_ms = time_ms(lib) if lib is not None else None
@@ -1190,34 +1268,66 @@ def time_kernels(cases_by_solve, solve_cfg):
     return timings
 
 
-def time_new_kernels(cases):
-    """Phase 5, B7a/B7b and B6 (anisotropic, the solve's envelope): kernel
-    and plain version in turns; no single PyTorch call computes any of
-    them."""
-    from repro_torch.kernels import bfgs_update, meanfield_step
+def time_b3_against_bmm(case):
+    """Phase 5, B3 against torch.bmm at the paper shape, where both are
+    bound by their launch: B3_PAIRS samples of each, taken in turns (B3,
+    bmm, B3, bmm, …), each the mean of a ~50 ms run. Prints both medians
+    and their ratio."""
+    import statistics
+
+    import torch
+    from repro_torch.kernels import direction
+
+    H, g = case["H"], case["g_new"]
+    b3, bmm = [], []
+    for _ in range(B3_PAIRS):
+        b3.append(time_ms(lambda: direction.direction_cuda(H, g), 50.0))
+        bmm.append(time_ms(lambda: torch.bmm(H, g[:, :, None]), 50.0))
+    m3, mb = statistics.median(b3), statistics.median(bmm)
+    print(f"time paper direction against torch.bmm, {B3_PAIRS} pairs in turns, B={H.shape[0]} "
+          f"D={H.shape[1]}: median {m3:.4f} ms against {mb:.4f} ms, ratio {m3 / mb:.3f}")
+
+
+def time_updates(cases):
+    """Phase 5, B2, B7a and B7b at every update shape: kernel and plain
+    version in turns; no single PyTorch call computes any of them. Beside
+    them, as a yardstick of the rate the card reaches on these bytes, one
+    H.clone() (H read and written once, no arithmetic)."""
+    from repro_torch.kernels import ops
 
     timings = {}
-    for kname, cell in (("bfgs_update", "per_lane-paper"), ("bfgs_update", "per_lane-scale"),
-                        ("bfgs_update_direction", "per_lane-scale"),
-                        ("meanfield_step_update", "meanfield")):
-        c = cases[cell]
-        if kname == "meanfield_step_update":
-            args = (c["x"], c["v"], c["xbar"], c["xi"], 0.5, 1.2, 0.3, "anisotropic")
-            kern, plain = meanfield_step.meanfield_step_cuda, meanfield_step.meanfield_step_plain
-        elif kname == "bfgs_update":
-            args = (c["H"], c["dx"], c["dg"])
-            kern, plain = bfgs_update.bfgs_update_cuda, bfgs_update.bfgs_update_plain
-        else:
-            args = (c["H"], c["dx"], c["dg"], c["g_new"])
-            kern, plain = bfgs_update.update_direction_cuda, bfgs_update.update_direction_plain
-        p1, k1, k2, p2 = (time_ms(lambda f=f: f(*args))
-                          for f in (plain, kern, kern, plain))
-        bound_ms, bound_by = new_bounds(kname, c)
-        timings[kname, cell] = dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=None,
-                                    bound_ms=bound_ms, bound_by=bound_by)
-        print(f"time {cell} {kname}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms,"
-              f" bound {bound_ms:.4f} ms ({bound_by})")
+    for label, c in cases.items():
+        B, D = c["g_new"].shape
+        print(f"time update {label} H.clone() B={B} D={D}: {time_ms(c['H'].clone):.4f} ms")
+        for kname, (kern, plain, args) in update_calls(c).items():
+            p1, k1, k2, p2 = (time_ms(lambda f=f: f(*args))
+                              for f in (plain, kern, kern, plain))
+            bound_ms, bound_by = update_bounds(kname, B, D)
+            timings[kname, label] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                                         library_ms=None, bound_ms=bound_ms,
+                                         bound_by=bound_by)
+            print(f"time update {label} {kname} B={B} D={D} ({ops.update_variant(D)}): "
+                  f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})")
     return timings
+
+
+def time_meanfield_step(cases):
+    """Phase 5, B6 (anisotropic, the solve's envelope) at the mean-field
+    shape: kernel and plain version in turns; no single PyTorch call
+    computes it."""
+    from repro_torch.kernels import meanfield_step
+
+    c = cases["meanfield"]
+    args = (c["x"], c["v"], c["xbar"], c["xi"], 0.5, 1.2, 0.3, "anisotropic")
+    kern, plain = meanfield_step.meanfield_step_cuda, meanfield_step.meanfield_step_plain
+    p1, k1, k2, p2 = (time_ms(lambda f=f: f(*args)) for f in (plain, kern, kern, plain))
+    bound_ms, bound_by = meanfield_bounds(c)
+    print(f"time meanfield meanfield_step_update: kernel {k1:.4f}/{k2:.4f} ms, plain "
+          f"{p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {("meanfield_step_update", "meanfield"): dict(
+        ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=None, bound_ms=bound_ms,
+        bound_by=bound_by)}
 
 
 def megakernel_bounds(kname, c):
@@ -1657,11 +1767,16 @@ def main() -> int:
     solve_cfg = solves()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     cases = {s: kernel_cases(solve_cfg[s], solve_cfg[s]["objective"], solve_cfg[s]["dim"],
-                             gen) for s in ("paper", "scale")}
+                             gen) for s in ("paper", "scale", "meanfield")}
     errors = check_kernels(cases, solve_cfg)
     errors = {(k, s): e for s, per in errors.items() for k, e in per.items()}
-    new_cases = new_kernel_cases(gen)
-    errors.update(check_new_kernels(new_cases))
+    sw_cases = swarm_cases(gen)
+    errors.update(check_meanfield_step(sw_cases))
+    # the update shapes draw from a generator of their own
+    upd_cases = update_cases(torch.Generator(device="cuda").manual_seed(19))
+    upd_errors = check_updates(upd_cases)
+    errors.update({(k, cell): upd_errors[k, shape] for cell, shape in UPDATE_SHAPE_OF.items()
+                   for k in UPDATE_KERNELS if cell in KERNEL_CELLS[k]})
     mk_cases = megakernel_cases(solve_cfg, gen)
     errors.update(check_megakernels(mk_cases))
     fl_cases = flash_inputs(gen)
@@ -1678,7 +1793,11 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_start:.1f} s] solves profiled")
     timings = {(k, s): t for s, per in time_kernels(cases, solve_cfg).items()
                for k, t in per.items()}  # phase 5
-    timings.update(time_new_kernels(new_cases))
+    time_b3_against_bmm(cases["paper"])
+    timings.update(time_meanfield_step(sw_cases))
+    upd_timings = time_updates(upd_cases)
+    timings.update({(k, cell): upd_timings[k, shape] for cell, shape in UPDATE_SHAPE_OF.items()
+                    for k in UPDATE_KERNELS if cell in KERNEL_CELLS[k]})
     timings.update(time_megakernels(mk_cases))
     timings.update(time_flash(fl_cases, smi))
     print(f"[{time.perf_counter() - t_start:.1f} s] kernels timed")

@@ -69,8 +69,9 @@ def _check(op, H, vectors, rho=None):
 
 
 # The CUDA kernels; same contracts as the plain versions, float32 on the
-# card. H' is a new tensor (the kernel could update H in place; these
-# wrappers do not).
+# card, one launch a call. The kernel picks its variant by D alone
+# (ops.update_variant: a warp per lane, H read once through shared memory,
+# or H streamed twice). H' is a new tensor.
 def guarded_update_direction_cuda(H, dx, dg, g_new, rho):
     B, D = _check("guarded_update_direction", H,
                   (("dx", dx), ("dg", dg), ("g_new", g_new)), rho)

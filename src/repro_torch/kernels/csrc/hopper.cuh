@@ -81,6 +81,15 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
                : "memory");
 }
 
+// one arrival on `bar` once every cp.async this thread has issued so far
+// has landed; counts against the barrier's expected arrivals (noinc), so a
+// barrier that every thread of the block arrives on this way is initialised
+// with the block's thread count
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

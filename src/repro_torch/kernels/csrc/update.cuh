@@ -3,11 +3,14 @@
 //   H' = H − ρ(u δxᵀ + δx uᵀ) + (ρ²s + ρ) δx δxᵀ,  p' = −H' g',
 // shared by the kernels that update a lane's H: bfgs_update.cu (B2, B7a,
 // B7b) and sweep_megakernel.cu (B5, B5b). One block per lane; the vectors
-// (δx, δg, g', u) lie in shared memory, and H is read twice: block_hdg
-// reads it for u, block_update_rows again for the H' rows (it needs only u,
-// δx, ρ and s), both from device memory or both from a shared-memory copy
-// (the megakernel's single-read variant). Every caller runs this one code,
-// so two kernels given the same inputs write the same bits.
+// (δx, δg, g', u) lie in shared memory. block_hdg (or block_hdg_rows, a
+// range of rows at a time) takes H for u, block_update_rows takes it again
+// for the H' rows (it needs only u, δx, ρ and s). The callers hand both
+// passes a shared-memory copy of H where it fits, so that device memory is
+// read once, and H in device memory above that, which is then read twice.
+// bfgs_update.cu's warp-per-lane variant for small D shares updated_entry
+// and the order of every row sum. Every caller runs this one code, so two
+// kernels given the same inputs write the same bits.
 #pragma once
 
 #include "common.cuh"
@@ -25,19 +28,20 @@ __device__ __forceinline__ void warp_sum_n(float (&v)[R]) {
   }
 }
 
-// su[i] = H[i, :]·sdg for every row i, warp w taking rows w, w + nwarps, …,
-// R of its rows at a time (their sums interleaved, each in the one-row
-// order: lane j adds columns j, j + 32, …, then the butterfly).
+// su[i] = H[i, :]·sdg for the rows i in [i_begin, i_end), warp w taking
+// rows i_begin + w, i_begin + w + nwarps, …, R of its rows at a time (their
+// sums interleaved, each in the one-row order: lane j adds columns j,
+// j + 32, …, then the butterfly).
 template <int R = 1>
-__device__ __forceinline__ void block_hdg(const float* H, const float* sdg,
-                                          float* su, int D, int warp, int lane,
-                                          int nwarps) {
-  for (int i0 = warp; i0 < D; i0 += R * nwarps) {
+__device__ __forceinline__ void block_hdg_rows(const float* H, const float* sdg,
+                                               float* su, int D, int i_begin, int i_end,
+                                               int warp, int lane, int nwarps) {
+  for (int i0 = i_begin + warp; i0 < i_end; i0 += R * nwarps) {
     const float* hr[R];
     float acc[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {  // a row past D repeats row D - 1, unstored
-      hr[r] = H + static_cast<long long>(min(i0 + r * nwarps, D - 1)) * D;
+    for (int r = 0; r < R; ++r) {  // a row past the range repeats its last, unstored
+      hr[r] = H + static_cast<long long>(min(i0 + r * nwarps, i_end - 1)) * D;
       acc[r] = 0.0f;
     }
     for (int j = lane; j < D; j += kWarp) {
@@ -49,10 +53,18 @@ __device__ __forceinline__ void block_hdg(const float* H, const float* sdg,
     if (lane == 0) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        if (i0 + r * nwarps < D) su[i0 + r * nwarps] = acc[r];
+        if (i0 + r * nwarps < i_end) su[i0 + r * nwarps] = acc[r];
       }
     }
   }
+}
+
+// block_hdg_rows over every row of H.
+template <int R = 1>
+__device__ __forceinline__ void block_hdg(const float* H, const float* sdg,
+                                          float* su, int D, int warp, int lane,
+                                          int nwarps) {
+  block_hdg_rows<R>(H, sdg, su, D, 0, D, warp, lane, nwarps);
 }
 
 // a·b over D, by one warp; every lane returns the sum.
@@ -61,6 +73,13 @@ __device__ __forceinline__ float warp_dot(const float* a, const float* b, int D,
   float acc = 0.0f;
   for (int j = lane; j < D; j += kWarp) acc += a[j] * b[j];
   return warp_sum(acc);
+}
+
+// One entry of H', (i, j): h − ρ(u_i δx_j + δx_i u_j) + coef·δx_i δx_j, in
+// the order every variant of every kernel rounds it (built -fmad=false).
+__device__ __forceinline__ float updated_entry(float h, float ui, float dxi, float uj,
+                                               float dxj, float rho, float coef) {
+  return h - rho * (ui * dxj + dxi * uj) + coef * (dxi * dxj);
 }
 
 // The H' rows into O and, with DIRECTION, p'_i = −H'[i, :]·sgn into p_out,
@@ -93,8 +112,7 @@ __device__ __forceinline__ void block_update_rows(const float* H, float* O,
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float h = hr[r][j];
-        const float hn =
-            h - rho * (ui[r] * sdx[j] + dxi[r] * su[j]) + coef * (dxi[r] * sdx[j]);
+        const float hn = updated_entry(h, ui[r], dxi[r], su[j], sdx[j], rho, coef);
         if (store[r]) orow[r][j] = hn;
         if (DIRECTION) acc[r] += hn * sgn[j];
       }

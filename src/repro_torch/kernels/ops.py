@@ -139,6 +139,43 @@ def megakernel_smem_dim(K: int, full: bool = True) -> int:
     return D
 
 
+# -- variants of the BFGS-update kernel (B2, B7a, B7b) --------------------------
+# csrc/bfgs_update.cu picks one of three variants by the lane's D alone,
+# with the rules stated here (kSmallMaxDim and h_fits_smem there):
+#   small      — a warp per lane while a row fits in the warp's 32 threads,
+#                D <= 32;
+#   smem       — one block per lane reading H once through shared memory
+#                while D² + 4·D floats (H, δx, δg, g', u) and 128 bytes of
+#                static scalars fit in a block's 232,448 bytes,
+#                (D² + 4·D)·4 + 128 <= 232,448: D <= 239;
+#   streaming  — one block per lane streaming H from device memory twice.
+_UPDATE_SMEM_SCALARS = 128
+
+
+def update_small_dim() -> int:
+    """The largest D at which the BFGS-update kernel takes a warp per lane:
+    one row's D columns fit in the warp's 32 threads."""
+    return 32
+
+
+def update_smem_dim() -> int:
+    """The largest D at which the BFGS-update kernel reads each lane's H
+    from device memory once: (D² + 4·D)·4 + 128 <= 232,448 bytes, 239.
+    Above it the kernel streams H twice."""
+    D = math.isqrt((SMEM_PER_BLOCK - _UPDATE_SMEM_SCALARS) // 4)
+    while D > 0 and (D * D + 4 * D) * 4 + _UPDATE_SMEM_SCALARS > SMEM_PER_BLOCK:
+        D -= 1
+    return D
+
+
+def update_variant(D: int) -> str:
+    """The variant of the BFGS-update kernel that a lane of D runs:
+    "small", "smem" or "streaming"."""
+    if D <= update_small_dim():
+        return "small"
+    return "smem" if D <= update_smem_dim() else "streaming"
+
+
 def sweep_megakernel_full(name, X, P, G, H, active, rhs, alphas, exhaust_alpha):
     """ONE launch: ladder + accept + value+grad + guarded H' + p'.
 

@@ -200,6 +200,23 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
         call()
 
 
+@pytest.mark.parametrize("threshold, want, fits, below, above", [
+    # a warp per lane: the power of two that covers a row's D columns is at
+    # most the warp's 32 threads
+    (ops.update_small_dim, 32, lambda d: 1 << (d - 1).bit_length() <= 32,
+     "small", "smem"),
+    # one read of H: H, δx, δg, g' and u beside 128 bytes of static scalars
+    (ops.update_smem_dim, 239,
+     lambda d: (d * d + 4 * d) * 4 + 128 <= ops.SMEM_PER_BLOCK, "smem", "streaming"),
+], ids=["small", "smem"])
+def test_update_variant_thresholds(threshold, want, fits, below, above):
+    """The BFGS-update kernel's (B2, B7a, B7b) variant thresholds: the
+    largest D that fits, not D + 1, and the variant on each side."""
+    got = threshold()
+    assert got == want and fits(got) and not fits(got + 1)
+    assert ops.update_variant(got) == below and ops.update_variant(got + 1) == above
+
+
 # -- B7a/B7b: the unguarded ρ-form update, ρ = 1/(δxᵀδg) per lane ------------
 # Against bfgs_update_pallas / update_direction_pallas (interpret mode), which
 # compute the same ρ-form: RTOL/ATOL. Against kernels/ref.py's literal
