@@ -11,7 +11,11 @@ Phases (any failure exits non-zero):
   3. hold each kernel against its plain PyTorch version on the card at the
      shapes its solves give it: B1, B3 and B4 at the paper, scale and
      mean-field shapes, with value-only f == value+grad f bitwise and
-     ackley's NaN gradient at the origin; B2, B7a and B7b (one kernel of
+     ackley's NaN gradient at the origin; B1a and B1b (a row of D on P =
+     ops.fused_obj_row_threads(D) threads: the smallest power of two >= D,
+     32/P rows a warp, a whole warp from D = 17) also at 4096 rows of D = 1,
+     2, 5, 8, 16, 17, 32 and 33 for all four objectives, each with the same
+     three checks; B2, B7a and B7b (one kernel of
      three variants chosen by D, ops.update_variant) at the paper (512 × 5),
      scale (16384 × 128) and mean-field (131072 × 8) shapes and at both
      edges of each variant (300 lanes of D = 32 and 33; 256 of
@@ -100,15 +104,26 @@ Phases (any failure exits non-zero):
      and the one PyTorch call that computes the same function, where there
      is one: torch.bmm for B3, scaled_dot_product_attention (timed only;
      the port never calls it) for B8 at the phi3-mini and starcoder2
-     shapes; B2, B7a and B7b at every shape phase 3 holds them at; B3 and
-     torch.bmm at the paper shape in 21 pairs taken in turns (medians and
-     their ratio);
-  6. print one JSON line {"kernels": [...]} with the measurements, the
+     shapes; B2, B7a and B7b at every shape phase 3 holds them at; B1a and
+     B1b also at 131072 rows of D = 8 and 16 (rastrigin); B3 and torch.bmm
+     at the paper shape in 21 pairs taken in turns (medians and their
+     ratio); the host's enqueue cost of one call of each kernel wrapper and
+     of torch.bmm at the paper shapes (µs a call over 2000 calls with no
+     synchronise, on the host clock); and that the stream a wrapper
+     launches on (kernels/_build.stream, a raw handle) is
+     torch.cuda.current_stream().cuda_stream, also inside
+     torch.cuda.stream(side), where a launch is held against its plain
+     version;
+  6. print one JSON line {"kernels": [...]} with the measurements (B1a's
+     and B1b's entries name their row layout at the cell's D), the
      script's own time, the card's name and power limit, and last
      {"ok": true, "device": {...}}.
 
 `python3 chip_smoke.py --chunk-memory` runs phase 4d alone, against the
 repro_torch beside the script (to compare two trees on one card).
+`python3 chip_smoke.py --launch-path` runs only phase 5's host enqueue
+costs and B3 against torch.bmm at the paper shapes, the same way (copy the
+script into another checkout and run the two in turns).
 
 It imports neither JAX nor the JAX package `repro`.
 """
@@ -208,6 +223,12 @@ UPDATE_SHAPE_OF = {"paper": "paper", "scale": "scale", "meanfield": "meanfield",
 UPDATE_KERNELS = ("guarded_update_direction", "bfgs_update", "bfgs_update_direction")
 ALONE_LANES = 64  # lanes launched alone and in the batch, bitwise equal
 B3_PAIRS = 21  # B3 and torch.bmm at the paper shape, timed in turns
+# B1a/B1b at every row layout (ops.fused_obj_row_threads) and both sides of
+# the whole-warp threshold (D = 16 / 17) and of one stride (32 / 33)
+FUSED_DIMS = (1, 2, 5, 8, 16, 17, 32, 33)
+FUSED_ROWS = 4096
+FUSED_TIMED = ((131072, 8), (131072, 16))  # (rows, D), rastrigin, phase 5
+ENQUEUE_CALLS = 2000  # calls a wrapper, no synchronise, for the host's cost
 MEANFIELD_RAGGED_N = 100_003  # no multiple of the kernels' 256-thread blocks
 # B8 against its plain version: |k - p| <= tol + tol·|p|. float32: the JAX
 # test's 2e-4. bf16: 1e-2 for unit-normal inputs — the kernel rounds P to
@@ -503,7 +524,7 @@ def meanfield_bounds(case):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def update_cases(gen):
+def update_cases(gen, shapes=UPDATE_SHAPES):
     """Inputs of B2, B7a and B7b at UPDATE_SHAPES: H = I + a small symmetric
     term and g' for all three; for B2 (guarded) every seventh lane frozen
     (ρ = 0, δx and δg zeroed) and ρ = 1/δxᵀδg elsewhere; for B7a/B7b
@@ -517,7 +538,7 @@ def update_cases(gen):
 
     smem_dim = ops.update_smem_dim()
     cases = {}
-    for label, B, D in UPDATE_SHAPES:
+    for label, B, D in shapes:
         if D is None:
             D = smem_dim if label == "single-read edge" else smem_dim + 1
         A = 0.1 * normal(B, D, D) / math.sqrt(D)
@@ -635,6 +656,50 @@ def check_kernels(cases_by_solve, solve_cfg):
     return errors
 
 
+def fused_layout(D) -> str:
+    """B1a/B1b's row layout at D, as ops.fused_obj_row_threads gives it."""
+    from repro_torch.kernels import ops
+
+    P = ops.fused_obj_row_threads(D)
+    if P == 32:
+        return "a warp a row"
+    return f"{P} thread{'s' if P > 1 else ''} a row, {32 // P} rows a warp"
+
+
+def check_fused_dims(gen):
+    """Phase 3, B1a and B1b at FUSED_ROWS rows of every D in FUSED_DIMS, for
+    all four objectives: within RTOL/ATOL of the plain version, value-only
+    f == value+grad f bitwise, and ackley's gradient NaN at the origin (row
+    0) with a finite f there."""
+    import torch
+    from repro_torch.core import get_objective
+    from repro_torch.kernels import fused_obj
+
+    for D in FUSED_DIMS:
+        worst_f = worst_g = 0.0
+        for name in fused_obj.FUSED_OBJECTIVES:
+            obj = get_objective(name)
+            x = obj.lower + (obj.upper - obj.lower) * torch.rand(
+                FUSED_ROWS, D, generator=gen, device="cuda")
+            x[0] = 0.0
+            fk, _ = fused_obj.value_grad_cuda(name, x, with_grad=False)
+            fkg, gk = fused_obj.value_grad_cuda(name, x)
+            fp, gp = fused_obj.value_grad_plain(name, x)
+            require(bitwise_equal(fk, fkg), f"B1 D={D} {name}: value-only f is not "
+                    "bitwise equal to value+grad f")
+            ea, eb = compare(fk, fp), compare(gk, gp)
+            require(ea[2] and eb[2], f"B1 D={D} {name}: fused kernel disagrees with "
+                    f"plain (f {ea[:2]}, g {eb[:2]})")
+            if name == "ackley":
+                require(bool(torch.isnan(gk[0]).all()) and bool(torch.isfinite(fkg[0])),
+                        f"B1 D={D}: ackley gradient at the origin is not NaN")
+            worst_f, worst_g = max(worst_f, ea[0]), max(worst_g, eb[0])
+        torch.cuda.synchronize()
+        print(f"check B1 N={FUSED_ROWS} D={D} ({fused_layout(D)}), all four objectives: "
+              f"max_abs_err f {worst_f:.3g} g {worst_g:.3g}; value-only f == value+grad "
+              "f bitwise; ackley's gradient NaN at the origin")
+
+
 def check_updates(cases):
     """Phase 3, B2, B7a and B7b at every update shape, each in the variant
     its D selects: against the plain versions; H' == H bitwise on the ρ = 0
@@ -712,7 +777,8 @@ def check_meanfield_step(cases):
     return errors
 
 
-def megakernel_cases(solve_cfg, gen):
+def megakernel_cases(solve_cfg, gen, cells=("megakernel-paper", "megakernel-scale"),
+                     streaming=True):
     """Inputs of B5/B5b at the megakernel solves' shapes (C lanes of D, C the
     lane chunk), as a sweep finds them: starts in the box, H = I + a small
     symmetric term, g = ∇f and the descent p = −Hg, every seventh lane
@@ -744,7 +810,7 @@ def megakernel_cases(solve_cfg, gen):
                     exhaust=exhaustion_alpha(K_LADDER), timed=timed)
 
     cases = {}
-    for cell in ("megakernel-paper", "megakernel-scale"):
+    for cell in cells:
         cfg = solve_cfg[cell]
         C = cfg["opts"].lane_chunk or cfg["opts"].pso.n_particles
         names = (fused_obj.FUSED_OBJECTIVES if cell == "megakernel-paper"
@@ -753,8 +819,9 @@ def megakernel_cases(solve_cfg, gen):
             # the solve's own objective is the one timed
             cases[cell, objective] = case(objective, C, cfg["dim"],
                                           objective == cfg["objective"])
-    cell, objective, C, dim = STREAMING_CASE
-    cases[cell, objective] = case(objective, C, dim, False)
+    if streaming:
+        cell, objective, C, dim = STREAMING_CASE
+        cases[cell, objective] = case(objective, C, dim, False)
     return cases
 
 
@@ -1288,6 +1355,124 @@ def time_b3_against_bmm(case):
           f"D={H.shape[1]}: median {m3:.4f} ms against {mb:.4f} ms, ratio {m3 / mb:.3f}")
 
 
+def time_fused_dims(gen):
+    """Phase 5, B1a and B1b (rastrigin) at the FUSED_TIMED shapes: kernel and
+    plain version in turns, beside the bound."""
+    import torch
+    from repro_torch.core import get_objective
+    from repro_torch.kernels import fused_obj
+
+    obj = get_objective("rastrigin")
+    for rows, D in FUSED_TIMED:
+        x = obj.lower + (obj.upper - obj.lower) * torch.rand(rows, D, generator=gen,
+                                                             device="cuda")
+        for kname, with_grad in (("fused_value", False), ("fused_value_grad", True)):
+            kern = lambda: fused_obj.value_grad_cuda("rastrigin", x, with_grad)  # noqa: E731
+            plain = lambda: fused_obj.value_grad_plain("rastrigin", x, with_grad)  # noqa: E731
+            p1, k1, k2, p2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
+            bound_ms, bound_by = bounds(kname, {"ladder": x, "commit": x}, D, "rastrigin")
+            print(f"time B1 {kname} rastrigin N={rows} D={D} ({fused_layout(D)}): kernel "
+                  f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by})")
+
+
+def time_enqueue(cases, upd_cases, mk_cases, gen):
+    """Phase 5, the host's cost of one call of each kernel wrapper and of
+    torch.bmm at the paper shapes (B6 on the paper swarm, 2048 × 5; B8 on a
+    small bf16 case): ENQUEUE_CALLS calls back to back after a warm-up, with
+    no synchronise, on the host clock, in two rounds. Each call's device
+    work there is a few µs, so the launch queue does not fill and the clock
+    reads the host's enqueue. Returns µs a call, the lower of the rounds."""
+    import torch
+    from repro_torch.kernels import (direction, flash_attention, fused_obj, meanfield_step,
+                                     pso_step, sweep_megakernel)
+
+    c, u = cases["paper"], upd_cases["paper"]
+    m = mk_cases["megakernel-paper", "rastrigin"]
+    mk = (m["objective"], m["X"], m["P"], m["G"], m["H"], m["active"])
+    alpha = m["alphas"][2].expand(m["X"].shape[0]).contiguous()
+    x, v, _, xbar, xi, _ = c["pso"]
+    q, k, vv = (torch.randn(1, 128, 2, 64, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(3))
+    calls = {
+        "fused_value": lambda: fused_obj.value_grad_cuda("rastrigin", c["ladder"], False),
+        "fused_value_grad": lambda: fused_obj.value_grad_cuda("rastrigin", c["commit"]),
+        "direction": lambda: direction.direction_cuda(c["H"], c["g_new"]),
+        "torch.bmm": lambda: torch.bmm(c["H"], c["g_new"][:, :, None]),
+        "pso_step_update": lambda: pso_step.pso_step_cuda(*c["pso"], 0.5, 1.2, 1.5),
+        **{kname: (lambda f=f, a=a: f(*a)) for kname, (f, _, a) in update_calls(u).items()},
+        "meanfield_step_update": lambda: meanfield_step.meanfield_step_cuda(
+            x, v, xbar, xi, 0.5, 1.2, 0.3),
+        "sweep_megakernel_full": lambda: sweep_megakernel.sweep_megakernel_full_cuda(
+            *mk, m["rhs"], m["alphas"], m["exhaust"]),
+        "sweep_megakernel_commit": lambda: sweep_megakernel.sweep_megakernel_commit_cuda(
+            *mk, alpha),
+        "flash_attention": lambda: flash_attention.flash_attention_cuda(q, k, vv),
+    }
+    rounds = {name: [] for name in calls}
+    for _ in range(2):
+        for name, fn in calls.items():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ENQUEUE_CALLS):
+                fn()
+            rounds[name].append((time.perf_counter() - t0) / ENQUEUE_CALLS * 1e6)
+            torch.cuda.synchronize()
+    for name, us in rounds.items():
+        print(f"enqueue {name}: {us[0]:.2f} / {us[1]:.2f} µs a call over {ENQUEUE_CALLS} calls, "
+              "no synchronise (host clock)")
+    return {name: min(us) for name, us in rounds.items()}
+
+
+def launch_path():
+    """`--launch-path`: the host enqueue costs and B3 against torch.bmm at
+    the paper shapes, for the repro_torch beside the script."""
+    import torch
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    solve_cfg = solves()
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    cases = {"paper": kernel_cases(solve_cfg["paper"], "rastrigin", 5, gen)}
+    upd = update_cases(torch.Generator(device="cuda").manual_seed(19),
+                       shapes=[s for s in UPDATE_SHAPES if s[0] == "paper"])
+    mk = megakernel_cases(solve_cfg, gen, cells=("megakernel-paper",), streaming=False)
+    print(json.dumps({"enqueue_us": time_enqueue(cases, upd, mk, gen)}))
+    time_b3_against_bmm(cases["paper"])
+
+
+def check_stream_handle(case):
+    """Phase 5: the stream a wrapper launches on (kernels/_build.stream, the
+    raw handle of the current stream) is torch.cuda.current_stream()'s,
+    also inside torch.cuda.stream(side), where B1b launched on the side
+    stream must match its plain version."""
+    import torch
+    from repro_torch.kernels import _build, fused_obj
+
+    x = case["commit"]
+    main = (_build.stream(x), torch.cuda.current_stream().cuda_stream)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        inside = (_build.stream(x), torch.cuda.current_stream().cuda_stream)
+        fk, gk = fused_obj.value_grad_cuda("rastrigin", x)
+    torch.cuda.current_stream().wait_stream(side)
+    fp, gp = fused_obj.value_grad_plain("rastrigin", x)
+    ea, eb = compare(fk, fp), compare(gk, gp)
+    require(main[0] == main[1], f"stream: _build.stream {main[0]:#x} != current stream "
+            f"{main[1]:#x}")
+    require(inside[0] == inside[1] == side.cuda_stream and inside[0] != main[0],
+            f"stream: inside torch.cuda.stream(side) _build.stream {inside[0]:#x}, current "
+            f"{inside[1]:#x}, side {side.cuda_stream:#x}")
+    require(ea[2] and eb[2], f"stream: B1b on the side stream disagrees (f {ea[:2]}, "
+            f"g {eb[:2]})")
+    print(f"stream: _build.stream {main[0]:#x} == torch.cuda.current_stream().cuda_stream "
+          f"{main[1]:#x}; inside torch.cuda.stream(side) {inside[0]:#x} == {inside[1]:#x} "
+          f"(the side stream); B1b launched there: max_abs_err f {ea[0]:.3g} g {eb[0]:.3g}")
+
+
 def time_updates(cases):
     """Phase 5, B2, B7a and B7b at every update shape: kernel and plain
     version in turns; no single PyTorch call computes any of them. Beside
@@ -1741,6 +1926,9 @@ def main() -> int:
     if sys.argv[1:] == ["--chunk-memory"]:
         chunk_memory()
         return 0
+    if sys.argv[1:] == ["--launch-path"]:
+        launch_path()
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -1770,6 +1958,7 @@ def main() -> int:
                              gen) for s in ("paper", "scale", "meanfield")}
     errors = check_kernels(cases, solve_cfg)
     errors = {(k, s): e for s, per in errors.items() for k, e in per.items()}
+    check_fused_dims(gen)
     sw_cases = swarm_cases(gen)
     errors.update(check_meanfield_step(sw_cases))
     # the update shapes draw from a generator of their own
@@ -1794,6 +1983,9 @@ def main() -> int:
     timings = {(k, s): t for s, per in time_kernels(cases, solve_cfg).items()
                for k, t in per.items()}  # phase 5
     time_b3_against_bmm(cases["paper"])
+    time_fused_dims(gen)
+    enqueue_us = time_enqueue(cases, upd_cases, mk_cases, gen)
+    check_stream_handle(cases["paper"])
     timings.update(time_meanfield_step(sw_cases))
     upd_timings = time_updates(upd_cases)
     timings.update({(k, cell): upd_timings[k, shape] for cell, shape in UPDATE_SHAPE_OF.items()
@@ -1812,8 +2004,13 @@ def main() -> int:
                 replaces=replaces, launches=launches[cell][kname],
                 max_abs_err=errors[kname, cell][0], ms=t["ms"],
                 plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                bound_by=t["bound_by"], library_ms=t["library_ms"]))
+                bound_by=t["bound_by"], library_ms=t["library_ms"],
+                enqueue_us=enqueue_us[kname]))
+            if kname in ("fused_value", "fused_value_grad"):
+                dim = solve_cfg[cell]["dim"]
+                entries[-1]["layout"] = f"{fused_layout(dim)} at D = {dim}"
     print(json.dumps({"launch_counts": launches}))
+    print(json.dumps({"enqueue_us": enqueue_us}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -2,7 +2,11 @@
 
 Every source under `csrc/` is compiled by `nvcc` into its own shared
 library with a plain C interface and loaded with `ctypes`; the wrappers in
-the kernel modules pass raw device pointers and PyTorch's current stream.
+the kernel modules pass raw device pointers (`data_ptr()` ints, which the
+`c_void_p` argument types take as they are) and the raw handle of
+PyTorch's current stream. Each launch function is looked up once, at its
+first launch.
+
 All sources compile in parallel (one `nvcc` each), for `sm_90a` (Hopper),
 into `build/` beside this file, which `.gitignore` lists. A library is named
 after a hash of its sources and flags, so an edit rebuilds it and an
@@ -21,7 +25,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 
@@ -147,34 +151,43 @@ def check_tensor(op: str, arg: str, t, shape, device=None,
                  dtype=torch.float32) -> None:
     """Raise unless `t` is a contiguous CUDA tensor of `shape` and `dtype`
     (float32 unless given; on `device` when given): the kernels take
-    nothing else."""
-    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+    nothing else. Every test reads an attribute that costs well under a
+    microsecond; the messages are built only on failure."""
+    if not (isinstance(t, torch.Tensor) and t.is_cuda):
         raise ValueError(f"{op}: {arg} must be a CUDA tensor")
     if device is not None and t.device != device:
         raise ValueError(f"{op}: {arg} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
+    if t.dtype is not dtype:
         raise TypeError(f"{op}: {arg} must be {dtype} (got {t.dtype})")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{op}: {arg} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{op}: {arg} must be contiguous")
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def stream(t) -> int:
+    """The raw handle of PyTorch's current stream on `t`'s device, for a
+    launch (what `torch.cuda.current_stream(t.device).cuda_stream` gives,
+    without building a Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def stream(t) -> ctypes.c_void_p:
-    """PyTorch's current stream on `t`'s device, for a launch."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+# launch function name -> its ctypes function (argtypes set), bound at first
+# use
+_BOUND: Dict[str, Callable[..., int]] = {}
+
+
+def _bind(name: str):
+    fn = _BOUND[name] = getattr(library(SIGNATURES[name][0]), name)
+    return fn
 
 
 def launch(name: str, *args) -> None:
-    """Call the launch function `name` (a key of SIGNATURES); raise if CUDA
+    """Call the launch function `name` (a key of SIGNATURES) with pointers
+    as `data_ptr()` ints and the stream from `stream()`; raise if CUDA
     refused the launch."""
-    lib = library(SIGNATURES[name][0])
-    code = getattr(lib, name)(*args)
-    if code != 0:
-        msg = lib.repro_error_string(code).decode()
+    code = (_BOUND.get(name) or _bind(name))(*args)
+    if code:
+        msg = library(SIGNATURES[name][0]).repro_error_string(code).decode()
         raise RuntimeError(f"{name} failed: CUDA error {code} ({msg})")

@@ -76,26 +76,26 @@ def guarded_update_direction_cuda(H, dx, dg, g_new, rho):
     B, D = _check("guarded_update_direction", H,
                   (("dx", dx), ("dg", dg), ("g_new", g_new)), rho)
     H_new = torch.empty_like(H)
-    p = torch.empty((B, D), dtype=H.dtype, device=H.device)
-    _build.launch("guarded_update_direction_launch", _build.ptr(H), _build.ptr(dx),
-                  _build.ptr(dg), _build.ptr(g_new), _build.ptr(rho),
-                  _build.ptr(H_new), _build.ptr(p), B, D, _build.stream(H))
+    p = H.new_empty(B, D)
+    _build.launch("guarded_update_direction_launch", H.data_ptr(), dx.data_ptr(),
+                  dg.data_ptr(), g_new.data_ptr(), rho.data_ptr(),
+                  H_new.data_ptr(), p.data_ptr(), B, D, _build.stream(H))
     return H_new, p
 
 
 def bfgs_update_cuda(H, dx, dg):
     B, D = _check("bfgs_update", H, (("dx", dx), ("dg", dg)))
     H_new = torch.empty_like(H)
-    _build.launch("bfgs_update_launch", _build.ptr(H), _build.ptr(dx), _build.ptr(dg),
-                  _build.ptr(H_new), B, D, _build.stream(H))
+    _build.launch("bfgs_update_launch", H.data_ptr(), dx.data_ptr(), dg.data_ptr(),
+                  H_new.data_ptr(), B, D, _build.stream(H))
     return H_new
 
 
 def update_direction_cuda(H, dx, dg, g_new):
     B, D = _check("update_direction", H, (("dx", dx), ("dg", dg), ("g_new", g_new)))
     H_new = torch.empty_like(H)
-    p = torch.empty((B, D), dtype=H.dtype, device=H.device)
-    _build.launch("update_direction_launch", _build.ptr(H), _build.ptr(dx),
-                  _build.ptr(dg), _build.ptr(g_new), _build.ptr(H_new), _build.ptr(p),
+    p = H.new_empty(B, D)
+    _build.launch("update_direction_launch", H.data_ptr(), dx.data_ptr(),
+                  dg.data_ptr(), g_new.data_ptr(), H_new.data_ptr(), p.data_ptr(),
                   B, D, _build.stream(H))
     return H_new, p

@@ -27,8 +27,9 @@
 //   - warp w takes rungs w, w + 8, …: it writes the trial row into its own
 //     shared buffer, with the same two roundings as the staged ladder's
 //     torch multiply and add (the file is built with -fmad=false), and runs
-//     objective.cuh's row_value, the body of B1a with the same lane
-//     striding, so each F_k is bitwise B1a's on the same trial row;
+//     objective.cuh's row_value on the whole warp, the body of B1a, whose
+//     row groups of P < 32 lanes at D <= 16 give the same bits
+//     (objective.cuh), so each F_k is bitwise B1a's on the same trial row;
 //   - the thresholds come in as the staged path computed them and are never
 //     recomputed here, so the accept decisions are the staged ones;
 //   - f' is row_value and g' grad_row at x' (B1b's bodies);
@@ -165,7 +166,7 @@ __global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a
       for (int j = lane; j < D; j += kWarp) trial[j] = sx[j] + alpha_k * sp[j];
       __syncwarp();
       float e1 = 0.0f, s1 = 0.0f, e2 = 0.0f;
-      const float fk = repro::row_value<OBJ>(trial, D, lane, &e1, &s1, &e2);
+      const float fk = repro::row_value<OBJ, kWarp>(trial, D, lane, &e1, &s1, &e2);
       if (lane == 0) sF[k] = fk <= rhs_k ? 1.0f : 0.0f;
       __syncwarp();  // every lane has read the row before the next rung
     }
@@ -196,7 +197,7 @@ __global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a
   __syncthreads();
   if (warp == 0) {
     float e1 = 0.0f, s1 = 0.0f, e2 = 0.0f;
-    const float fv = repro::row_value<OBJ>(sxn, D, lane, &e1, &s1, &e2);
+    const float fv = repro::row_value<OBJ, kWarp>(sxn, D, lane, &e1, &s1, &e2);
     if (lane == 0) {
       a.f_out[b] = fv;
       s_e1 = e1;

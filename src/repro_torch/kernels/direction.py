@@ -17,12 +17,12 @@ def direction_plain(H, g):
 
 def direction_cuda(H, g):
     """The CUDA kernel; same contract as direction_plain, float32 on the card."""
-    if H.dim() != 3 or H.shape[1] != H.shape[2]:
-        raise ValueError(f"direction: H must be (B, D, D), got {tuple(H.shape)}")
-    B, D, _ = H.shape
-    _build.check_tensor("direction", "H", H, (B, D, D))
-    _build.check_tensor("direction", "g", g, (B, D), H.device)
-    p = torch.empty((B, D), dtype=H.dtype, device=H.device)
-    _build.launch("direction_launch", _build.ptr(H), _build.ptr(g), _build.ptr(p),
-                  B, D, _build.stream(H))
+    shape = H.shape
+    if len(shape) != 3 or shape[1] != shape[2]:
+        raise ValueError(f"direction: H must be (B, D, D), got {tuple(shape)}")
+    _build.check_tensor("direction", "H", H, shape)
+    _build.check_tensor("direction", "g", g, shape[:2], H.device)
+    p = torch.empty_like(g)
+    _build.launch("direction_launch", H.data_ptr(), g.data_ptr(), p.data_ptr(),
+                  shape[0], shape[1], _build.stream(H))
     return p

@@ -62,7 +62,7 @@ def flash_attention_cuda(q, k, v, causal=True, scale=None):
     scale = hd ** -0.5 if scale is None else scale
     o = torch.empty_like(q)
     _build.launch("flash_attention_launch", int(q.dtype == torch.bfloat16),
-                  _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   B, Sq, Sk, H, KV, hd, float(scale), int(bool(causal)),
                   _build.stream(q))
     return o

@@ -78,17 +78,20 @@ def value_grad_plain(name: str, x: torch.Tensor, with_grad: bool = True):
 
 def value_grad_cuda(name: str, x: torch.Tensor, with_grad: bool = True):
     """The CUDA kernel: x (N, D) float32 contiguous on the card ->
-    (f (N,), g (N, D) or None)."""
-    if name not in _KERNEL_ID:
+    (f (N,), g (N, D) or None). A row takes ops.fused_obj_row_threads(D)
+    threads (csrc/fused_obj.cu)."""
+    kernel_id = _KERNEL_ID.get(name)
+    if kernel_id is None:
         raise ValueError(f"no fused kernel for objective {name!r}; "
                          f"have {FUSED_OBJECTIVES}")
-    if x.dim() != 2:
-        raise ValueError(f"fused_obj: x must be (N, D), got {tuple(x.shape)}")
-    _build.check_tensor("fused_obj", "x", x, x.shape)
-    N, D = x.shape
-    f = torch.empty((N,), dtype=x.dtype, device=x.device)
-    g = torch.empty((N, D), dtype=x.dtype, device=x.device) if with_grad else None
-    _build.launch("fused_obj_launch", _KERNEL_ID[name], int(with_grad),
-                  _build.ptr(x), _build.ptr(f),
-                  _build.ptr(g) if with_grad else None, N, D, _build.stream(x))
+    shape = x.shape
+    if len(shape) != 2:
+        raise ValueError(f"fused_obj: x must be (N, D), got {tuple(shape)}")
+    _build.check_tensor("fused_obj", "x", x, shape)
+    N, D = shape
+    f = x.new_empty(N)
+    g = torch.empty_like(x) if with_grad else None
+    _build.launch("fused_obj_launch", kernel_id, int(with_grad), x.data_ptr(),
+                  f.data_ptr(), g.data_ptr() if with_grad else None, N, D,
+                  _build.stream(x))
     return f, g

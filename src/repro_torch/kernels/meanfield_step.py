@@ -47,8 +47,8 @@ def meanfield_step_cuda(x, v, xbar, xi, w, drift, sigma, noise="anisotropic"):
     _build.check_tensor("meanfield_step", "xbar", xbar, (D,), x.device)
     x_new = torch.empty_like(x)
     v_new = torch.empty_like(x)
-    _build.launch("meanfield_step_launch", _build.ptr(x), _build.ptr(v),
-                  _build.ptr(xbar), _build.ptr(xi), float(w), float(drift),
-                  float(sigma), int(noise == "isotropic"), _build.ptr(x_new),
-                  _build.ptr(v_new), N, D, _build.stream(x))
+    _build.launch("meanfield_step_launch", x.data_ptr(), v.data_ptr(),
+                  xbar.data_ptr(), xi.data_ptr(), float(w), float(drift),
+                  float(sigma), int(noise == "isotropic"), x_new.data_ptr(),
+                  v_new.data_ptr(), N, D, _build.stream(x))
     return x_new, v_new

@@ -25,7 +25,7 @@ from repro_torch.kernels.fused_obj import FUSED_OBJECTIVES  # noqa: F401
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
-    return t.device.type == "cpu"
+    return t.is_cpu
 
 
 def fused_value_grad(name: str, x: torch.Tensor):
@@ -45,6 +45,18 @@ def fused_value(name: str, x: torch.Tensor) -> torch.Tensor:
     f, _ = fused_obj.value_grad_cuda(name, x, with_grad=False)
     fused_value.launches += 1
     return f
+
+
+def fused_obj_row_threads(D: int) -> int:
+    """The threads that csrc/fused_obj.cu (B1a, B1b) gives a row of D: the
+    smallest power of two >= D, at most a warp's 32, so that a warp
+    evaluates 32 // P rows at a time; from D = 17 on a row takes a whole
+    warp, its lanes striding over D. The kernel's launch applies the same
+    rule (row_threads there)."""
+    P = 1
+    while P < D and P < 32:
+        P *= 2
+    return P
 
 
 def guarded_update_direction(H, dx, dg, g_new, rho):

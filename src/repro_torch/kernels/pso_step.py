@@ -27,8 +27,8 @@ def pso_step_cuda(x, v, px, gx, r1, r2, w, c1, c2):
     _build.check_tensor("pso_step", "gx", gx, (D,), x.device)
     x_new = torch.empty_like(x)
     v_new = torch.empty_like(x)
-    _build.launch("pso_step_launch", _build.ptr(x), _build.ptr(v), _build.ptr(px),
-                  _build.ptr(gx), _build.ptr(r1), _build.ptr(r2), float(w),
-                  float(c1), float(c2), _build.ptr(x_new), _build.ptr(v_new),
+    _build.launch("pso_step_launch", x.data_ptr(), v.data_ptr(), px.data_ptr(),
+                  gx.data_ptr(), r1.data_ptr(), r2.data_ptr(), float(w),
+                  float(c1), float(c2), x_new.data_ptr(), v_new.data_ptr(),
                   N, D, _build.stream(x))
     return x_new, v_new

@@ -90,7 +90,7 @@ def _check(op, name, X, P, G, H, active):
 
 def _outputs(X, H):
     B, D = X.shape
-    return (torch.empty_like(X), torch.empty((B,), dtype=X.dtype, device=X.device),
+    return (torch.empty_like(X), X.new_empty(B),
             torch.empty_like(X), torch.empty_like(H), torch.empty_like(X))
 
 
@@ -105,12 +105,12 @@ def sweep_megakernel_full_cuda(name, X, P, G, H, active, rhs, alphas, exhaust_al
     _build.check_tensor(op, "rhs", rhs, (K, B), X.device)
     _build.check_tensor(op, "alphas", alphas, (K,), X.device)
     x_new, f_new, g_new, H_new, p_new = outs = _outputs(X, H)
-    alpha = torch.empty((B,), dtype=X.dtype, device=X.device)
-    rung = torch.empty((B,), dtype=torch.int32, device=X.device)
-    _build.launch("sweep_megakernel_full_launch", _KERNEL_ID[name], _build.ptr(X),
-                  _build.ptr(P), _build.ptr(G), _build.ptr(H), _build.ptr(active),
-                  _build.ptr(rhs), _build.ptr(alphas), float(exhaust_alpha),
-                  *(_build.ptr(t) for t in outs), _build.ptr(alpha), _build.ptr(rung),
+    alpha = X.new_empty(B)
+    rung = X.new_empty(B, dtype=torch.int32)
+    _build.launch("sweep_megakernel_full_launch", _KERNEL_ID[name], X.data_ptr(),
+                  P.data_ptr(), G.data_ptr(), H.data_ptr(), active.data_ptr(),
+                  rhs.data_ptr(), alphas.data_ptr(), float(exhaust_alpha),
+                  *(t.data_ptr() for t in outs), alpha.data_ptr(), rung.data_ptr(),
                   B, D, K, _build.stream(X))
     return x_new, f_new, g_new, H_new, p_new, alpha, rung
 
@@ -120,8 +120,8 @@ def sweep_megakernel_commit_cuda(name, X, P, G, H, active, alpha):
     B, D = _check(op, name, X, P, G, H, active)
     _build.check_tensor(op, "alpha", alpha, (B,), X.device)
     outs = _outputs(X, H)
-    _build.launch("sweep_megakernel_commit_launch", _KERNEL_ID[name], _build.ptr(X),
-                  _build.ptr(P), _build.ptr(G), _build.ptr(H), _build.ptr(active),
-                  _build.ptr(alpha), *(_build.ptr(t) for t in outs), B, D,
+    _build.launch("sweep_megakernel_commit_launch", _KERNEL_ID[name], X.data_ptr(),
+                  P.data_ptr(), G.data_ptr(), H.data_ptr(), active.data_ptr(),
+                  alpha.data_ptr(), *(t.data_ptr() for t in outs), B, D,
                   _build.stream(X))
     return outs

@@ -217,6 +217,79 @@ def test_update_variant_thresholds(threshold, want, fits, below, above):
     assert ops.update_variant(got) == below and ops.update_variant(got + 1) == above
 
 
+@pytest.mark.parametrize("d", range(1, 41))
+def test_fused_obj_row_threads(d):
+    """B1a/B1b's row layout: a row of D takes P = min(32, the smallest power
+    of two >= D) threads, so a warp holds 32 // P whole rows."""
+    P = ops.fused_obj_row_threads(d)
+    assert P == min(32, 1 << (d - 1).bit_length())
+    assert P >= min(d, 32) and (P == 1 or P // 2 < d)
+    assert 32 % P == 0 and (32 // P) * P == 32
+
+
+# -- the bit argument behind B1a/B1b's row groups -------------------------------
+# csrc/fused_obj.cu sums a row of D <= 16 over a group of P < 32 lanes, the
+# sweep megakernel (csrc/sweep_megakernel.cu) over a whole warp, and both must
+# give the same bits (objective.cuh). Here numpy replays both butterflies on
+# float32 row terms as objective.cuh forms them: lane j holds 0.0f + term j,
+# empty lanes +0.0, and each round adds the lane `offset` apart (xor). The
+# CUDA kernels themselves run only on the card, where chip_smoke.py's phase
+# 3 (value-only f == value+grad f, and B5/B5b's f' against B1b's) and phase
+# 4b (megakernel against staged kernels) hold them bit for bit.
+_TWO_PI32 = np.float32(2.0 * np.pi)
+
+
+def _row_terms(name, x):
+    """The float32 per-lane terms of each reduction objective.cuh takes for
+    rows x (M, D): a list of (M, T) arrays (ackley has two sums)."""
+    f32 = np.float32
+    if name == "sphere":
+        return [x * x]
+    if name == "rastrigin":
+        return [x * x - f32(10.0) * np.cos(_TWO_PI32 * x)]
+    if name == "rosenbrock":
+        xi, xn = x[:, :-1], x[:, 1:]
+        d = xn - xi * xi
+        t = f32(1.0) - xi
+        return [t * t + f32(100.0) * d * d]
+    return [x * x, np.cos(_TWO_PI32 * x)]
+
+
+def _butterfly(lanes, width):
+    """Every lane's sum after the xor butterfly over aligned groups of
+    `width` lanes of a (warps, 32) float32 array."""
+    idx = np.arange(32)
+    off = width // 2
+    while off:
+        lanes = lanes + lanes[:, idx ^ off]
+        off //= 2
+    return lanes
+
+
+@pytest.mark.parametrize("name", fused_obj.FUSED_OBJECTIVES)
+def test_row_group_butterfly_matches_warp_butterfly_bitwise(name):
+    rng = _rng(20)
+    for d in range(1, 33):
+        P = ops.fused_obj_row_threads(d)
+        rows_per_warp = 32 // P
+        x = rng.uniform(-BOX[name], BOX[name], (64, d)).astype(np.float32)
+        x[0] = 0.0  # ackley's origin; sphere's all-zero row
+        x[1, ::2] = -0.0
+        for terms in _row_terms(name, x):
+            M, T = terms.shape
+            assert T <= P  # at most one term a lane
+            parts = np.float32(0.0) + terms  # a lane's partial sum
+            warp = np.zeros((M, 32), np.float32)
+            warp[:, :T] = parts
+            whole = _butterfly(warp, 32)  # the megakernel's warp per row
+            group = np.zeros((M, P), np.float32)
+            group[:, :T] = parts
+            grouped = _butterfly(group.reshape(M // rows_per_warp, 32), P).reshape(M, P)
+            want = np.repeat(whole[:, :1], P, axis=1).view(np.int32)
+            assert np.array_equal(grouped.view(np.int32), want), (name, d)
+            assert not np.any(np.signbit(parts) & (parts == 0.0))
+
+
 # -- B7a/B7b: the unguarded ρ-form update, ρ = 1/(δxᵀδg) per lane ------------
 # Against bfgs_update_pallas / update_direction_pallas (interpret mode), which
 # compute the same ρ-form: RTOL/ATOL. Against kernels/ref.py's literal
