@@ -11,11 +11,17 @@ Phases (any failure exits non-zero):
   3. hold each kernel against its plain PyTorch version on the card at the
      shapes its solves give it: B1, B3 and B4 at the paper, scale and
      mean-field shapes, with value-only f == value+grad f bitwise and
-     ackley's NaN gradient at the origin; B1a and B1b (a row of D on P =
-     ops.fused_obj_row_threads(D) threads: the smallest power of two >= D,
-     32/P rows a warp, a whole warp from D = 17) also at 4096 rows of D = 1,
-     2, 5, 8, 16, 17, 32 and 33 for all four objectives, each with the same
-     three checks; B2, B7a and B7b (one kernel of
+     ackley's NaN gradient at the origin; B1a and B1b (three variants by D,
+     ops.fused_obj_variant: row groups of P = ops.fused_obj_row_threads(D)
+     threads to D = 16, a warp a row staged through a ring of shared-memory
+     tiles by bulk copies to D = 1815, a warp a row from device memory
+     above) also at D = 1, 2, 5, 8, 16, 17, 32, 33, 64, 128, 300, 1815,
+     1816 and 8192 for all four objectives, at 4096 rows and at a ragged
+     row count (fused_ragged_rows) from x's base and from views 1, 2 and 3
+     floats into a buffer, each with the same three checks; the fast
+     cosine and sine of B1 and B5 (objective.cuh trig_fast_path) bitwise
+     equal to cosf and sinf on every float of their range; B2, B7a and B7b
+     (one kernel of
      three variants chosen by D, ops.update_variant) at the paper (512 × 5),
      scale (16384 × 128) and mean-field (131072 × 8) shapes and at both
      edges of each variant (300 lanes of D = 32 and 33; 256 of
@@ -105,8 +111,11 @@ Phases (any failure exits non-zero):
      is one: torch.bmm for B3, scaled_dot_product_attention (timed only;
      the port never calls it) for B8 at the phi3-mini and starcoder2
      shapes; B2, B7a and B7b at every shape phase 3 holds them at; B1a and
-     B1b also at 131072 rows of D = 8 and 16 (rastrigin); B3 and torch.bmm
-     at the paper shape in 21 pairs taken in turns (medians and their
+     B1b also at 131072 rows of D = 8 and 16 (rastrigin) and at D = 128
+     (ackley) at 327680 and 16384 rows, warm and cold (cycling through 128
+     MiB of copies), beside the staged kernel's element-loop body counted
+     from its SASS (cuobjdump) and the issue bound it gives; B3 and
+     torch.bmm at the paper shape in 21 pairs taken in turns (medians and their
      ratio); the host's enqueue cost of one call of each kernel wrapper and
      of torch.bmm at the paper shapes (µs a call over 2000 calls with no
      synchronise, on the host clock); and that the stream a wrapper
@@ -115,7 +124,7 @@ Phases (any failure exits non-zero):
      torch.cuda.stream(side), where a launch is held against its plain
      version;
   6. print one JSON line {"kernels": [...]} with the measurements (B1a's
-     and B1b's entries name their row layout at the cell's D), the
+     and B1b's entries name their variant and layout at the cell's D), the
      script's own time, the card's name and power limit, and last
      {"ok": true, "device": {...}}.
 
@@ -124,6 +133,8 @@ repro_torch beside the script (to compare two trees on one card).
 `python3 chip_smoke.py --launch-path` runs only phase 5's host enqueue
 costs and B3 against torch.bmm at the paper shapes, the same way (copy the
 script into another checkout and run the two in turns).
+`python3 chip_smoke.py --fused` runs only B1a's and B1b's checks and times
+of phases 3 and 5, the same way.
 
 It imports neither JAX nor the JAX package `repro`.
 """
@@ -223,11 +234,31 @@ UPDATE_SHAPE_OF = {"paper": "paper", "scale": "scale", "meanfield": "meanfield",
 UPDATE_KERNELS = ("guarded_update_direction", "bfgs_update", "bfgs_update_direction")
 ALONE_LANES = 64  # lanes launched alone and in the batch, bitwise equal
 B3_PAIRS = 21  # B3 and torch.bmm at the paper shape, timed in turns
-# B1a/B1b at every row layout (ops.fused_obj_row_threads) and both sides of
-# the whole-warp threshold (D = 16 / 17) and of one stride (32 / 33)
-FUSED_DIMS = (1, 2, 5, 8, 16, 17, 32, 33)
+# B1a/B1b at every row layout (ops.fused_obj_row_threads), both sides of the
+# whole-warp threshold (D = 16 / 17), of one stride (32 / 33), the cells'
+# D = 128, a ring of 16-row tiles (300), both edges of the staged variant
+# (ops.fused_obj_staged_max_dim(), 1815, and 1816, direct) and one D above
+# them (direct)
+FUSED_DIMS = (1, 2, 5, 8, 16, 17, 32, 33, 64, 128, 300, 1815, 1816, 8192)
 FUSED_ROWS = 4096
+# Each D also at a ragged row count, no multiple of any tile (2048/P rows at
+# D <= 16, ops.fused_obj_tile_rows(D) rows above), from x's base and from
+# views 1, 2 and 3 floats into a buffer (a base that is not 16-byte
+# aligned). Staged, the count gives every block of the grid several turns of
+# its ring; at odd D the last tile's rows·D·4 bytes are no multiple of 16.
+FUSED_OFFSETS = (0, 1, 2, 3)
+
+
+def fused_ragged_rows(D) -> int:
+    return 4099 if D <= 16 else 300_007 if D <= 300 else 20_001 if D <= 2048 else 3001
+
+
 FUSED_TIMED = ((131072, 8), (131072, 16))  # (rows, D), rastrigin, phase 5
+# B1a/B1b at the scale cell's D = 128 (ackley), phase 5: the ladder's rows
+# and the commit's (and a fallback rung's), each warm (back to back) and
+# cold (cycling through FUSED_COLD_BYTES of copies, past the 50 MB L2)
+FUSED_D128_ROWS = (327_680, 16_384)
+FUSED_COLD_BYTES = 128 << 20
 ENQUEUE_CALLS = 2000  # calls a wrapper, no synchronise, for the host's cost
 MEANFIELD_RAGGED_N = 100_003  # no multiple of the kernels' 256-thread blocks
 # B8 against its plain version: |k - p| <= tol + tol·|p|. float32: the JAX
@@ -657,47 +688,88 @@ def check_kernels(cases_by_solve, solve_cfg):
 
 
 def fused_layout(D) -> str:
-    """B1a/B1b's row layout at D, as ops.fused_obj_row_threads gives it."""
+    """B1a/B1b's variant and row layout at D, as ops.fused_obj_variant,
+    fused_obj_row_threads, fused_obj_tile_rows and fused_obj_stages give
+    them."""
     from repro_torch.kernels import ops
 
-    P = ops.fused_obj_row_threads(D)
-    if P == 32:
-        return "a warp a row"
-    return f"{P} thread{'s' if P > 1 else ''} a row, {32 // P} rows a warp"
+    if not hasattr(ops, "fused_obj_variant"):  # a tree from before the variants (--fused)
+        return "before the variants by D"
+    variant = ops.fused_obj_variant(D)
+    if variant == "rows":
+        P = ops.fused_obj_row_threads(D)
+        return f"rows: {P} thread{'s' if P > 1 else ''} a row, {32 // P} rows a warp"
+    if variant == "staged":
+        return (f"staged: a warp a row, tiles of {ops.fused_obj_tile_rows(D)} rows in a "
+                f"ring of {ops.fused_obj_stages(D)} stages")
+    return "direct: a warp a row from device memory"
+
+
+def fused_inputs(name, rows, D, offset, gen):
+    """`rows` × D starts in the objective's box, row 0 at the origin, as a
+    contiguous view `offset` floats into a buffer."""
+    import torch
+    from repro_torch.core import get_objective
+
+    obj = get_objective(name)
+    buf = torch.empty(rows * D + offset, device="cuda")
+    x = buf[offset:].view(rows, D)
+    x.copy_(obj.lower + (obj.upper - obj.lower) * torch.rand(
+        rows, D, generator=gen, device="cuda"))
+    x[0] = 0.0
+    return x
 
 
 def check_fused_dims(gen):
-    """Phase 3, B1a and B1b at FUSED_ROWS rows of every D in FUSED_DIMS, for
-    all four objectives: within RTOL/ATOL of the plain version, value-only
-    f == value+grad f bitwise, and ackley's gradient NaN at the origin (row
-    0) with a finite f there."""
+    """Phase 3, B1a and B1b at every D in FUSED_DIMS, for all four objectives,
+    at FUSED_ROWS rows and at fused_ragged_rows(D) rows from each of
+    FUSED_OFFSETS: within RTOL/ATOL of the plain version, value-only f ==
+    value+grad f bitwise, and ackley's gradient NaN at the origin (row 0)
+    with a finite f there."""
     import torch
-    from repro_torch.core import get_objective
     from repro_torch.kernels import fused_obj
 
     for D in FUSED_DIMS:
-        worst_f = worst_g = 0.0
-        for name in fused_obj.FUSED_OBJECTIVES:
-            obj = get_objective(name)
-            x = obj.lower + (obj.upper - obj.lower) * torch.rand(
-                FUSED_ROWS, D, generator=gen, device="cuda")
-            x[0] = 0.0
-            fk, _ = fused_obj.value_grad_cuda(name, x, with_grad=False)
-            fkg, gk = fused_obj.value_grad_cuda(name, x)
-            fp, gp = fused_obj.value_grad_plain(name, x)
-            require(bitwise_equal(fk, fkg), f"B1 D={D} {name}: value-only f is not "
-                    "bitwise equal to value+grad f")
-            ea, eb = compare(fk, fp), compare(gk, gp)
-            require(ea[2] and eb[2], f"B1 D={D} {name}: fused kernel disagrees with "
-                    f"plain (f {ea[:2]}, g {eb[:2]})")
-            if name == "ackley":
-                require(bool(torch.isnan(gk[0]).all()) and bool(torch.isfinite(fkg[0])),
-                        f"B1 D={D}: ackley gradient at the origin is not NaN")
-            worst_f, worst_g = max(worst_f, ea[0]), max(worst_g, eb[0])
-        torch.cuda.synchronize()
-        print(f"check B1 N={FUSED_ROWS} D={D} ({fused_layout(D)}), all four objectives: "
-              f"max_abs_err f {worst_f:.3g} g {worst_g:.3g}; value-only f == value+grad "
-              "f bitwise; ackley's gradient NaN at the origin")
+        layouts = [(FUSED_ROWS, 0)] + [(fused_ragged_rows(D), o) for o in FUSED_OFFSETS]
+        for rows, offset in layouts:
+            worst_f = worst_g = 0.0
+            for name in fused_obj.FUSED_OBJECTIVES:
+                x = fused_inputs(name, rows, D, offset, gen)
+                fk, _ = fused_obj.value_grad_cuda(name, x, with_grad=False)
+                fkg, gk = fused_obj.value_grad_cuda(name, x)
+                fp, gp = fused_obj.value_grad_plain(name, x)
+                where = f"B1 D={D} N={rows} offset {offset} {name}"
+                require(bitwise_equal(fk, fkg), f"{where}: value-only f is not bitwise "
+                        "equal to value+grad f")
+                ea, eb = compare(fk, fp), compare(gk, gp)
+                require(ea[2] and eb[2], f"{where}: fused kernel disagrees with plain "
+                        f"(f {ea[:2]}, g {eb[:2]})")
+                if name == "ackley":
+                    require(bool(torch.isnan(gk[0]).all()) and bool(torch.isfinite(fkg[0])),
+                            f"{where}: ackley gradient at the origin is not NaN")
+                worst_f, worst_g = max(worst_f, ea[0]), max(worst_g, eb[0])
+                del x, fk, fkg, gk, fp, gp
+            torch.cuda.synchronize()
+            print(f"check B1 N={rows} D={D} offset {offset} ({fused_layout(D)}), all four "
+                  f"objectives: max_abs_err f {worst_f:.3g} g {worst_g:.3g}; value-only f == "
+                  "value+grad f bitwise; ackley's gradient NaN at the origin")
+
+
+def check_trig():
+    """Phase 3: the fast cosine and sine that B1a/B1b and B5/B5b take
+    (objective.cuh trig_fast_path) bitwise equal to cosf and sinf on every
+    float t with |t| < 105615, the fast path's range: 2·bits(105615) of them."""
+    import numpy as np
+    from repro_torch.kernels import fused_obj
+
+    t0 = time.perf_counter()
+    n_cos, n_sin, n = fused_obj.trig_check_cuda()
+    want = 2 * int(np.float32(105615.0).view(np.uint32))
+    require(n == want, f"trig check compared {n} floats, expected {want}")
+    require(n_cos == 0 and n_sin == 0, f"trig_fast_path differs from cosf on {n_cos} and "
+            f"from sinf on {n_sin} of {n} floats")
+    print(f"check trig_fast_path: bitwise equal to cosf and sinf on all {n} floats with "
+          f"|t| < 105615 ({time.perf_counter() - t0:.3f} s)")
 
 
 def check_updates(cases):
@@ -1376,6 +1448,150 @@ def time_fused_dims(gen):
                   f"({bound_by})")
 
 
+def device_ms(fn, calls=200, key="fused_obj"):
+    """Device time of one launch of the kernels named `key` that `fn`
+    enqueues, from torch.profiler over `calls` calls (device activity only):
+    at a shape whose kernel is shorter than its host enqueue, back-to-back
+    CUDA events time the host, the profiler the kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key]
+    n = sum(c for _, c in rows)
+    return sum(t for t, _ in rows) / n / 1e3 if n else float("nan")
+
+
+def time_fused_d128(gen):
+    """Phase 5, B1a and B1b (ackley) at D = 128 at each of FUSED_D128_ROWS
+    rows: kernel and plain version in turns, warm (one input, back to back)
+    and cold (cycling through copies of FUSED_COLD_BYTES in all, so that
+    each launch finds its input out of the L2), and the kernel's device time
+    a launch, cold, from the profiler (device_ms), beside the bound. Returns
+    {(kname, rows): (warm ms, cold ms, bound ms, bound_by)}."""
+    import itertools
+
+    from repro_torch.kernels import fused_obj
+
+    D, out = 128, {}
+    for rows in FUSED_D128_ROWS:
+        copies = max(1, -(-FUSED_COLD_BYTES // (rows * D * 4)))
+        xs = [fused_inputs("ackley", rows, D, 0, gen) for _ in range(copies)]
+        for kname, with_grad in (("fused_value", False), ("fused_value_grad", True)):
+            ring = itertools.cycle(xs)
+            kern = lambda: fused_obj.value_grad_cuda("ackley", xs[0], with_grad)  # noqa: E731
+            cold = lambda: fused_obj.value_grad_cuda("ackley", next(ring), with_grad)  # noqa: E731
+            plain = lambda: fused_obj.value_grad_plain("ackley", xs[0], with_grad)  # noqa: E731
+            p1, k1, c1, k2, c2, p2 = (time_ms(plain), time_ms(kern), time_ms(cold),
+                                      time_ms(kern), time_ms(cold), time_ms(plain))
+            dev = device_ms(cold)
+            bound_ms, bound_by = bounds(kname, {"ladder": xs[0], "commit": xs[0]}, D,
+                                        "ackley")
+            out[kname, rows] = (min(k1, k2), min(c1, c2), bound_ms, bound_by)
+            print(f"time B1 {kname} ackley N={rows} D={D} ({fused_layout(D)}): kernel warm "
+                  f"{k1:.4f}/{k2:.4f} ms, cold {c1:.4f}/{c2:.4f} ms ({copies} copies, "
+                  f"{copies * rows * D * 4 / 2**20:.0f} MiB), device {dev:.4f} ms a launch "
+                  f"(profiler, cold), plain {p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by})")
+        del xs
+    return out
+
+
+def sass_blocks(stem, kernel):
+    """For each instantiation of `kernel` in csrc/<stem>.cu's library, from
+    `cuobjdump -sass`: (instructions, LDS) of the branch-free stretch of code
+    that holds the most shared-memory loads, the element loop's body:
+    {(OBJ, WITH_GRAD): (instructions, LDS)}; None when the toolkit has no
+    cuobjdump."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    text = subprocess.run([tool, "-sass", str(_build._library_path(stem))],
+                          capture_output=True, text=True, check=True).stdout
+    found = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        head = chunk.splitlines()[0]  # the name, mangled or not
+        m = (re.search(kernel + r"ILi(\d+)ELb([01])E", head)
+             or re.search(kernel + r"<(\d+), *(true|false|1|0)>", head))
+        if not m:
+            continue
+        insts, starts = [], set()  # (address, text); addresses that begin a block
+        for line in chunk.splitlines():
+            if re.match(r"\s*\.L_x_\d+:", line):
+                starts.add(len(insts))
+                continue
+            im = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if im:
+                insts.append((int(im.group(1), 16), im.group(2)))
+        targets = {int(h, 16) for _, ins in insts
+                   for h in re.findall(r"\bBRA\S*\s+(?:\S+,\s*)?0x([0-9a-f]+)", ins)}
+        blocks, n, lds = [], 0, 0  # (LDS, instructions) of each stretch
+        for i, (addr, ins) in enumerate(insts):
+            if (i in starts or addr in targets) and n:
+                blocks.append((lds, n))
+                n, lds = 0, 0
+            n += 1
+            lds += bool(re.match(r"(@!?U?P\w+\s+)?LDS\b", ins))
+            if re.search(r"\b(BRA|EXIT|RET|CALL|BSYNC|WARPSYNC)\b", ins):
+                blocks.append((lds, n))
+                n, lds = 0, 0
+        lds, n = max(blocks + [(lds, n)], key=lambda b: (b[0], -b[1]))
+        found[int(m.group(1)), m.group(2) in ("1", "true")] = (n, lds)
+    return found
+
+
+def max_sm_clock() -> int:
+    """The card's largest SM clock, MHz, as nvidia-smi reads it."""
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+
+
+def issue_bound_d128(sms, clock_mhz):
+    """Phase 5: the staged B1a/B1b kernel's element-loop body from its SASS,
+    and the issue bound of that body alone at the scale cell's ladder
+    (ackley, 327,680 × 128): one warp instruction a clock on each of an
+    SM's four schedulers at the card's largest SM clock, the instructions
+    an element taken as the body's instructions over its loads (LDS). The
+    rest of a row's instructions (butterflies, the ring's bookkeeping) is
+    not counted, so the bound is low. Returns (bound ms, instructions an
+    element) or None."""
+    blocks = sass_blocks("fused_obj", "fused_obj_staged_kernel")
+    if blocks is None:
+        print("sass: no cuobjdump in the toolkit; issue bound not measured")
+        return None
+    from repro_torch.kernels import fused_obj
+
+    out = None
+    for (obj_id, with_grad), (n, lds) in sorted(blocks.items()):
+        obj = fused_obj.FUSED_OBJECTIVES[obj_id]
+        grad = "value+grad" if with_grad else "value"
+        print(f"sass fused_obj_staged_kernel {obj} {grad}: element-loop body {n} "
+              f"instructions for {lds} LDS ({n / max(lds, 1):.2f} an element)")
+        if obj == "ackley" and not with_grad and lds:
+            per_elem = n / lds
+            warp_insts = 327_680 * 128 / 32 * per_elem
+            bound = warp_insts / (sms * 4 * clock_mhz * 1e6) * 1e3
+            out = (bound, per_elem)
+            print(f"issue bound, B1a ackley 327680 x 128, element loop alone: {per_elem:.2f} "
+                  f"instructions an element, {warp_insts:.4g} warp instructions over {sms} "
+                  f"SMs x 4 schedulers at {clock_mhz} MHz = {bound:.4f} ms (byte bound "
+                  f"{327_680 * 129 * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    return out
+
+
 def time_enqueue(cases, upd_cases, mk_cases, gen):
     """Phase 5, the host's cost of one call of each kernel wrapper and of
     torch.bmm at the paper shapes (B6 on the paper swarm, 2048 × 5; B8 on a
@@ -1441,6 +1657,25 @@ def launch_path():
     mk = megakernel_cases(solve_cfg, gen, cells=("megakernel-paper",), streaming=False)
     print(json.dumps({"enqueue_us": time_enqueue(cases, upd, mk, gen)}))
     time_b3_against_bmm(cases["paper"])
+
+
+def fused_path():
+    """`--fused`: phase 3's and phase 5's B1a/B1b parts (check_fused_dims,
+    check_trig, time_fused_dims, time_fused_d128 and the staged kernel's
+    element-loop body), for the repro_torch beside the script."""
+    import torch
+    from repro_torch.kernels import _build, fused_obj
+
+    _build.build_all()
+    print_ptxas({k: v for k, v in _build.BUILD_LOG.items() if k == "fused_obj"})
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    check_fused_dims(gen)
+    if hasattr(fused_obj, "trig_check_cuda"):  # not in a tree from before it
+        check_trig()
+    time_fused_dims(gen)
+    time_fused_d128(gen)
+    issue_bound_d128(torch.cuda.get_device_properties(0).multi_processor_count,
+                     max_sm_clock())
 
 
 def check_stream_handle(case):
@@ -1921,13 +2156,16 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
 
     if sys.argv[1:] == ["--chunk-memory"]:
         chunk_memory()
         return 0
     if sys.argv[1:] == ["--launch-path"]:
         launch_path()
+        return 0
+    if sys.argv[1:] == ["--fused"]:
+        fused_path()
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -1959,6 +2197,7 @@ def main() -> int:
     errors = check_kernels(cases, solve_cfg)
     errors = {(k, s): e for s, per in errors.items() for k, e in per.items()}
     check_fused_dims(gen)
+    check_trig()
     sw_cases = swarm_cases(gen)
     errors.update(check_meanfield_step(sw_cases))
     # the update shapes draw from a generator of their own
@@ -1984,6 +2223,9 @@ def main() -> int:
                for k, t in per.items()}  # phase 5
     time_b3_against_bmm(cases["paper"])
     time_fused_dims(gen)
+    time_fused_d128(gen)
+    issue_bound_d128(torch.cuda.get_device_properties(0).multi_processor_count,
+                     max_sm_clock())
     enqueue_us = time_enqueue(cases, upd_cases, mk_cases, gen)
     check_stream_handle(cases["paper"])
     timings.update(time_meanfield_step(sw_cases))
@@ -2008,6 +2250,7 @@ def main() -> int:
                 enqueue_us=enqueue_us[kname]))
             if kname in ("fused_value", "fused_value_grad"):
                 dim = solve_cfg[cell]["dim"]
+                entries[-1]["variant"] = ops.fused_obj_variant(dim)
                 entries[-1]["layout"] = f"{fused_layout(dim)} at D = {dim}"
     print(json.dumps({"launch_counts": launches}))
     print(json.dumps({"enqueue_us": enqueue_us}))

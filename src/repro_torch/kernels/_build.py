@@ -54,6 +54,7 @@ _F = ctypes.c_float
 # argument types).
 SIGNATURES = {
     "fused_obj_launch": ("fused_obj", [_I, _I, _P, _P, _P, _I, _I, _P]),
+    "fused_obj_trig_check_launch": ("fused_obj", [_P, _P]),
     "pso_step_launch": ("pso_step",
                         [_P, _P, _P, _P, _P, _P, _F, _F, _F, _P, _P, _I, _I, _P]),
     "direction_launch": ("direction", [_P, _P, _P, _I, _I, _P]),

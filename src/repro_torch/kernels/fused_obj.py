@@ -77,9 +77,9 @@ def value_grad_plain(name: str, x: torch.Tensor, with_grad: bool = True):
 
 
 def value_grad_cuda(name: str, x: torch.Tensor, with_grad: bool = True):
-    """The CUDA kernel: x (N, D) float32 contiguous on the card ->
-    (f (N,), g (N, D) or None). A row takes ops.fused_obj_row_threads(D)
-    threads (csrc/fused_obj.cu)."""
+    """The CUDA kernel: x (N, D) float32 contiguous on the card, at any
+    4-byte alignment -> (f (N,), g (N, D) or None). The variant follows D
+    alone (ops.fused_obj_variant; csrc/fused_obj.cu)."""
     kernel_id = _KERNEL_ID.get(name)
     if kernel_id is None:
         raise ValueError(f"no fused kernel for objective {name!r}; "
@@ -95,3 +95,13 @@ def value_grad_cuda(name: str, x: torch.Tensor, with_grad: bool = True):
                   f.data_ptr(), g.data_ptr() if with_grad else None, N, D,
                   _build.stream(x))
     return f, g
+
+
+def trig_check_cuda(device="cuda"):
+    """The fused objectives' fast cosine and sine (csrc/objective.cuh
+    trig_fast_path) against the toolkit's cosf and sinf on every float t
+    with |t| < 105615, on the card: (cosines that differ in any bit, sines
+    that differ, floats compared). A check; no solve calls it."""
+    counts = torch.zeros(3, dtype=torch.int64, device=device)
+    _build.launch("fused_obj_trig_check_launch", counts.data_ptr(), _build.stream(counts))
+    return tuple(int(c) for c in counts.tolist())

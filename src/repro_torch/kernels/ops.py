@@ -59,6 +59,59 @@ def fused_obj_row_threads(D: int) -> int:
     return P
 
 
+# -- variants of the fused-objective kernel (B1a, B1b) -------------------------
+# csrc/fused_obj.cu picks one of three variants by D alone, with the rules
+# stated here (row_threads, ring and launch_layout there):
+#   rows    — row groups of P < 32 lanes through a shared-memory tile, D <= 16;
+#   staged  — a warp a row, persistent blocks, tiles of R rows (a multiple
+#             of 16, about 16 KB, 16 to 64 rows: two rows at a time for each
+#             of eight consumer warps) staged by bulk copies through a ring
+#             of S <= 4 stages of R·D + 4 floats behind 64 bytes of
+#             mbarriers, while two stages of 16 rows fit in a block's
+#             232,448 bytes: 17 <= D <= 1815;
+#   direct  — a warp a row reading device memory, above.
+_FUSED_TILE_FLOATS = 4096  # a stage's target, 16 KB
+_FUSED_TILE_ROWS = (16, 64)
+_FUSED_MAX_STAGES = 4
+_FUSED_BARRIER_BYTES = 64
+
+
+def fused_obj_tile_rows(D: int) -> int:
+    """Rows a tile of the staged variant at D: 4096 // D rounded down to a
+    multiple of 16, from 16 to 64."""
+    lo, hi = _FUSED_TILE_ROWS
+    return min(hi, max(lo, _FUSED_TILE_FLOATS // D // lo * lo))
+
+
+def fused_obj_ring_bytes(D: int, rows: int, stages: int) -> int:
+    """Shared memory of a block of the staged variant: `stages` stages of
+    rows·D + 4 floats (the 4 take a base that is not 16-byte aligned)
+    behind the full and empty mbarriers."""
+    return stages * (rows * D + 4) * 4 + _FUSED_BARRIER_BYTES
+
+
+def fused_obj_stages(D: int) -> int:
+    """Stages of the staged variant's ring at D: as many as fit in a block's
+    shared memory, at most 4; under 2 where the variant does not run."""
+    stage = fused_obj_ring_bytes(D, fused_obj_tile_rows(D), 1) - _FUSED_BARRIER_BYTES
+    return min(_FUSED_MAX_STAGES, (SMEM_PER_BLOCK - _FUSED_BARRIER_BYTES) // stage)
+
+
+def fused_obj_staged_max_dim() -> int:
+    """The largest D whose smallest ring, two stages of 16 rows, fits:
+    2·(16·D + 4)·4 + 64 <= 232,448 bytes, 1815."""
+    lo = _FUSED_TILE_ROWS[0]
+    return ((SMEM_PER_BLOCK - _FUSED_BARRIER_BYTES) // (2 * 4) - 4) // lo
+
+
+def fused_obj_variant(D: int) -> str:
+    """The variant of the fused-objective kernel that rows of D run:
+    "rows", "staged" or "direct"."""
+    if fused_obj_row_threads(D) < 32:
+        return "rows"
+    return "staged" if fused_obj_stages(D) >= 2 else "direct"
+
+
 def guarded_update_direction(H, dx, dg, g_new, rho):
     """Guarded fused H' + p' = −H' g_new; rho (B,) is 0 where the update is
     disabled, with dx, dg zeroed there, so H' = H exactly for those lanes."""

@@ -227,6 +227,41 @@ def test_fused_obj_row_threads(d):
     assert 32 % P == 0 and (32 // P) * P == 32
 
 
+def _smallest_ring_fits(d):
+    """Two stages of 16 rows of d, behind the ring's 64 bytes of mbarriers,
+    in a block's shared memory."""
+    return 2 * (16 * d + 4) * 4 + 64 <= ops.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("d, want", [
+    (16, "rows"), (17, "staged"), (1815, "staged"), (1816, "direct"), (8192, "direct"),
+])
+def test_fused_obj_variant_thresholds(d, want):
+    """B1a/B1b's variants by D: row groups to D = 16, the staged ring while
+    its smallest ring (two stages of 16 rows) fits, direct above; the
+    staged threshold is the largest D that fits and not D + 1."""
+    top = ops.fused_obj_staged_max_dim()
+    assert top == 1815 and _smallest_ring_fits(top) and not _smallest_ring_fits(top + 1)
+    assert ops.fused_obj_variant(d) == want
+
+
+@pytest.mark.parametrize("d", [17, 32, 33, 64, 100, 128, 200, 256, 257, 300, 1000, 1024,
+                               1815])
+def test_fused_obj_ring(d):
+    """The staged variant's tile and ring at D: R a multiple of 16 (so of 4,
+    and two rows for each of the eight consumer warps) from 16 to 64, the
+    largest that keeps a tile within 16 KB where 16 rows do; as many stages
+    as fit up to 4 and at least 2; the ring within a block's shared
+    memory."""
+    R, S = ops.fused_obj_tile_rows(d), ops.fused_obj_stages(d)
+    assert R % 16 == 0 and 16 <= R <= 64
+    assert R == 16 or R * d * 4 <= 16384
+    assert R in (16, 64) or (R + 16) * d * 4 > 16384
+    assert 2 <= S <= 4
+    assert ops.fused_obj_ring_bytes(d, R, S) <= ops.SMEM_PER_BLOCK
+    assert S == 4 or ops.fused_obj_ring_bytes(d, R, S + 1) > ops.SMEM_PER_BLOCK
+
+
 # -- the bit argument behind B1a/B1b's row groups -------------------------------
 # csrc/fused_obj.cu sums a row of D <= 16 over a group of P < 32 lanes, the
 # sweep megakernel (csrc/sweep_megakernel.cu) over a whole warp, and both must
