@@ -39,7 +39,17 @@ Phases (any failure exits non-zero):
      (flash attention) at the phi3-mini prefill shape (B=4, S=2048,
      H=KV=32, hd=96, bf16, causal), the starcoder2-15b GQA shape (B=1,
      S=2048, H=48, KV=4, hd=128, bf16, causal) and two ragged float32
-     shapes (B=2, Sq=Sk=333, H=4, KV=2, hd=64, causal and not);
+     shapes (B=2, Sq=Sk=333, H=4, KV=2, hd=64, causal and not); and the
+     shapes a compacted sweep's smallest buckets give B1a, B1b, B2 and
+     B5/B5b (check_tiny_buckets: 1, 2, 3 and 5 lanes of D = 5 and 128), each
+     against its plain version and bitwise equal to the same lanes inside a
+     64-lane launch, with the sweep's row sums and norms at those row counts
+     printed against the same rows of 16384;
+  3b. the schedules down to buckets of 1, 2, 4 and 8 lanes end to end
+     (check_tiny_solves): 64 rosenbrock lanes, all but 1, 2, 3 or 5 at the
+     optimum, spread over four chunks of 16, 5 sweeps at D = 5 and 128 in
+     both batched modes, compacted, repacked and compacted, and auto, each
+     equal to the static solve;
   4. drive the main paths, `zeus` on "cuda", one solve at a time, with
      every launch counter set to 0 just before each solve and read just
      after, each solve's kernels required to have launched (exact counts
@@ -66,6 +76,23 @@ Phases (any failure exits non-zero):
                         B2 and the ladder's B1a never);
        megakernel-ladder-scale — megakernel-scale with ladder_len=4 (the
                         adaptive ladder, then B5b once per chunk-sweep);
+       compact-scale  — scale with compact_every=1: equal to scale's solve
+                        (x, fval, grad_norm, status, n_evals, sweeps,
+                        n_converged), eval_rows and chunk-steps at most its;
+       repack-paper   — paper with repack_every=1 and compact_every=1:
+                        equal to paper's solve, chunk-steps at most its;
+       auto-megakernel-scale — megakernel-scale with schedule="auto": equal
+                        to megakernel-scale's lanes (n_evals aside: shorter
+                        ladders probe less), one B5 or B5b per chunk-step;
+                        then schedule="replay" of its trace, equal to it in
+                        every field;
+       dijet          — the paper's application (examples/fit_dijet.py) in
+                        float32: 40 bins of 1000-6000 GeV, counts drawn at
+                        TRUE = (-2, 10, 4.5, 0.3) from seed 7, 512
+                        particles, iter_pso=10, iter_bfgs=300, θ=1e-2,
+                        required_c=32, box [-5, 15]: best_f <= nll(TRUE) +
+                        1, 90% of the pulls within ±2σ, n_converged >= 32;
+                        B2, B3 and B4, no B1 (the NLL has no fused body);
      and the LM serving path (phi3-mini-3.8b at full width, bf16 weights
      drawn from torch.Generator("cuda").manual_seed(0)), each run with
      every counter set to 0 just before and read just after, B8 launched
@@ -134,7 +161,8 @@ repro_torch beside the script (to compare two trees on one card).
 costs and B3 against torch.bmm at the paper shapes, the same way (copy the
 script into another checkout and run the two in turns).
 `python3 chip_smoke.py --fused` runs only B1a's and B1b's checks and times
-of phases 3 and 5, the same way.
+of phases 3 and 5, the same way. `python3 chip_smoke.py --tiny` runs only
+the tiny-bucket checks of phases 3 and 3b.
 
 It imports neither JAX nor the JAX package `repro`.
 """
@@ -260,6 +288,19 @@ FUSED_TIMED = ((131072, 8), (131072, 16))  # (rows, D), rastrigin, phase 5
 FUSED_D128_ROWS = (327_680, 16_384)
 FUSED_COLD_BYTES = 128 << 20
 ENQUEUE_CALLS = 2000  # calls a wrapper, no synchronise, for the host's cost
+# the kernels a compacted sweep runs on its smallest buckets (phase 3):
+# B1a/B1b, B2 and B5/B5b at N lanes of D, each against its plain version
+# and bitwise equal to the same lanes inside a TINY_BASE-lane launch
+TINY_LANES = (1, 2, 3, 5)
+TINY_DIMS = (("rastrigin", 5), ("ackley", 128))
+TINY_BASE = 64
+# the dijet fit (examples/fit_dijet.py): TRUE = (log p0, p1, p2, p3), the
+# bin edges in GeV and the seed of the simulated counts
+DIJET_TRUE = (-2.0, 10.0, 4.5, 0.3)
+DIJET_EDGES = (1000.0, 6000.0, 41)
+DIJET_SEED = 7
+# the fields a schedule's solve must share with its static counterpart
+SAME_FIELDS = ("x", "fval", "grad_norm", "status", "n_evals")
 MEANFIELD_RAGGED_N = 100_003  # no multiple of the kernels' 256-thread blocks
 # B8 against its plain version: |k - p| <= tol + tol·|p|. float32: the JAX
 # test's 2e-4. bf16: 1e-2 for unit-normal inputs — the kernel rounds P to
@@ -334,6 +375,11 @@ def solves():
         return lambda res: {"bfgs_update": res.raw.map_trips,
                             "direction": res.raw.map_trips,
                             "pso_step_update": pso_iters}
+
+    def auto_megakernel(res, counts):
+        # one B5 or B5b a sweep, by the ladder of the window's plan
+        return (counts["sweep_megakernel_full"] + counts["sweep_megakernel_commit"]
+                == res.raw.map_trips)
 
     def megakernel(pso_iters, n_chunks, full):
         # one B5 (full ladder) or B5b (adaptive ladder) per chunk and sweep;
@@ -424,6 +470,34 @@ def solves():
             opts=ZeusOptions(pso=scale_pso, bfgs=BFGSOptions(iter_bfgs=100, ladder_len=4),
                              sweep_mode="megakernel"),
             must=("fused_value",), exact=megakernel(5, 1, full=False)),
+        # the sweep schedules: each solve must equal its static counterpart
+        "compact-scale": dict(
+            objective="ackley", dim=128, seed=1, equals="scale",
+            opts=ZeusOptions(pso=scale_pso, bfgs=BFGSOptions(iter_bfgs=100),
+                             sweep_mode="batched", compact_every=1),
+            must=BATCHED_KERNELS, exact=lambda res: {"pso_step_update": 5}),
+        "repack-paper": dict(
+            objective="rastrigin", dim=5, seed=0, equals="paper",
+            opts=ZeusOptions(pso=paper_pso, bfgs=paper_bfgs, lane_chunk=512,
+                             sweep_mode="batched", repack_every=1, compact_every=1),
+            must=BATCHED_KERNELS, exact=lambda res: {"pso_step_update": 8}),
+        "auto-megakernel-scale": dict(
+            objective="ackley", dim=128, seed=1, equals="megakernel-scale", replay=True,
+            opts=ZeusOptions(pso=scale_pso, bfgs=BFGSOptions(iter_bfgs=100),
+                             sweep_mode="megakernel", schedule="auto"),
+            may=("fused_value", "sweep_megakernel_full", "sweep_megakernel_commit"),
+            exact=lambda res: {"guarded_update_direction": 0, "fused_value_grad": 1,
+                               "direction": 1, "pso_step_update": 5},
+            check=auto_megakernel),
+        # the paper's application, in float32 (fit_dijet.py's settings)
+        "dijet": dict(
+            dijet=True, dim=4, seed=3,
+            opts=ZeusOptions(pso=PSOOptions(n_particles=512, iter_pso=10),
+                             bfgs=BFGSOptions(iter_bfgs=300, theta=1e-2, required_c=32,
+                                              ad_mode="forward"),
+                             sweep_mode="batched"),
+            must=("guarded_update_direction",),
+            exact=lambda res: {"direction": 1, "pso_step_update": 10}),
     }
 
 
@@ -785,8 +859,8 @@ def check_updates(cases):
     for label, c in cases.items():
         B, D = c["g_new"].shape
         variant = ops.update_variant(D)
-        lo = min(5, B - ALONE_LANES)  # off the small variant's 8-lane blocks
-        alone = slice(lo, lo + ALONE_LANES)
+        lo = max(0, min(5, B - ALONE_LANES))  # off the small variant's 8-lane blocks
+        alone = slice(lo, min(B, lo + ALONE_LANES))
         outs = {}
         for kname, (kern, plain, args) in update_calls(c).items():
             got = kern(*args)
@@ -799,7 +873,7 @@ def check_updates(cases):
             sub = kern(*(t[alone].contiguous() for t in args))
             sub = sub if isinstance(sub, tuple) else (sub,)
             require(all(bitwise_equal(k[alone], part) for k, part in zip(got, sub)),
-                    f"update {label} ({variant}): {kname} of lanes {lo}..{lo + ALONE_LANES - 1}"
+                    f"update {label} ({variant}): {kname} of lanes {lo}..{alone.stop - 1}"
                     " alone differs from the same lanes in the batch")
             outs[kname] = got
             del want
@@ -815,7 +889,7 @@ def check_updates(cases):
         print(f"check update {label} B={B} D={D} ({variant}): max_abs_err "
               + ", ".join(f"{k} {errors[k, label][0]:.3g}" for k in UPDATE_KERNELS)
               + f"; H' == H bitwise on {int(frozen.sum())} rho = 0 lanes; B7b H' == B7a "
-              f"H' bitwise; stand-in lane finite; lanes {lo}..{lo + ALONE_LANES - 1} alone =="
+              f"H' bitwise; stand-in lane finite; lanes {lo}..{alone.stop - 1} alone =="
               " in batch bitwise")
     return errors
 
@@ -849,37 +923,44 @@ def check_meanfield_step(cases):
     return errors
 
 
-def megakernel_cases(solve_cfg, gen, cells=("megakernel-paper", "megakernel-scale"),
-                     streaming=True):
-    """Inputs of B5/B5b at the megakernel solves' shapes (C lanes of D, C the
-    lane chunk), as a sweep finds them: starts in the box, H = I + a small
-    symmetric term, g = ∇f and the descent p = −Hg, every seventh lane
-    frozen, lane 0 at the origin with p = 0 (ackley's gradient is NaN
-    there), lane 1 uphill (p = g) so that its ladder may run out, and the
-    Armijo thresholds as the staged ladder computes them. The paper shape
-    has one case per fused objective; the scale shape runs ackley, and
-    STREAMING_CASE holds D above the single-read threshold."""
+def megakernel_case(objective, C, dim, gen, timed=False):
+    """Inputs of B5/B5b for C lanes of D, as a sweep finds them: starts in
+    the box, H = I + a small symmetric term, g = ∇f and the descent p = −Hg,
+    every seventh lane frozen, lane 0 at the origin with p = 0 (ackley's
+    gradient is NaN there), lane 1 uphill (p = g) so that its ladder may run
+    out, and the Armijo thresholds as the staged ladder computes them."""
     import torch
     from repro_torch.core import get_objective
     from repro_torch.core.linesearch import exhaustion_alpha, ladder_thresholds
     from repro_torch.kernels import direction, fused_obj
 
+    obj = get_objective(objective)
+    X = obj.lower + (obj.upper - obj.lower) * torch.rand(
+        C, dim, generator=gen, device="cuda")
+    X[0] = 0.0
+    F, G = fused_obj.value_grad_plain(objective, X)
+    A = 0.1 * torch.randn(C, dim, dim, generator=gen, device="cuda") / math.sqrt(dim)
+    H = (torch.eye(dim, device="cuda") + 0.5 * (A + A.transpose(1, 2))).contiguous()
+    P = direction.direction_plain(H, torch.nan_to_num(G))
+    P[0] = 0.0
+    P[1] = G[1]
+    active = torch.arange(C, device="cuda") % 7 != 0
+    alphas, rhs = ladder_thresholds(F, G, P, 0.3, K_LADDER)
+    return dict(objective=objective, X=X, P=P, G=G, H=H,
+                active=active, rhs=rhs, alphas=alphas,
+                exhaust=exhaustion_alpha(K_LADDER), timed=timed)
+
+
+def megakernel_cases(solve_cfg, gen, cells=("megakernel-paper", "megakernel-scale"),
+                     streaming=True):
+    """Inputs of B5/B5b at the megakernel solves' shapes (C lanes of D, C the
+    lane chunk; megakernel_case). The paper shape has one case per fused
+    objective; the scale shape runs ackley, and STREAMING_CASE holds D above
+    the single-read threshold."""
+    from repro_torch.kernels import fused_obj
+
     def case(objective, C, dim, timed):
-        obj = get_objective(objective)
-        X = obj.lower + (obj.upper - obj.lower) * torch.rand(
-            C, dim, generator=gen, device="cuda")
-        X[0] = 0.0
-        F, G = fused_obj.value_grad_plain(objective, X)
-        A = 0.1 * torch.randn(C, dim, dim, generator=gen, device="cuda") / math.sqrt(dim)
-        H = (torch.eye(dim, device="cuda") + 0.5 * (A + A.transpose(1, 2))).contiguous()
-        P = direction.direction_plain(H, torch.nan_to_num(G))
-        P[0] = 0.0
-        P[1] = G[1]
-        active = torch.arange(C, device="cuda") % 7 != 0
-        alphas, rhs = ladder_thresholds(F, G, P, 0.3, K_LADDER)
-        return dict(objective=objective, X=X, P=P, G=G, H=H,
-                    active=active, rhs=rhs, alphas=alphas,
-                    exhaust=exhaustion_alpha(K_LADDER), timed=timed)
+        return megakernel_case(objective, C, dim, gen, timed)
 
     cases = {}
     for cell in cells:
@@ -982,6 +1063,132 @@ def check_megakernels(cases):
     return errors
 
 
+def check_tiny_buckets(gen):
+    """Phase 3, the shapes a compacted sweep's smallest buckets give the
+    kernels: N = TINY_LANES lanes of D (TINY_DIMS). B1a on the N lanes'
+    K-rung ladder, B1b on their rows, B2 and B5/B5b on their state, each
+    against its plain version (B5/B5b and B2 by check_megakernels and
+    check_updates) and bitwise equal to the same lanes inside one
+    TINY_BASE-lane launch; then the sweep's own row reductions
+    (torch.sum, vector_norm) at N rows against the same rows at 16384,
+    printed."""
+    import torch
+    from repro_torch.kernels import bfgs_update as bu
+    from repro_torch.kernels import fused_obj, sweep_megakernel as sm
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    for objective, D in TINY_DIMS:
+        base = megakernel_case(objective, TINY_BASE, D, gen)
+        upd = update_cases(gen, shapes=(("tiny base", TINY_BASE, D),))["tiny base"]
+        check_updates(update_cases(gen, shapes=tuple((f"tiny N={N}", N, D)
+                                                     for N in TINY_LANES)))
+        args = ("X", "P", "G", "H", "active")
+        b_full = sm.sweep_megakernel_full_cuda(objective, *(base[a] for a in args),
+                                               base["rhs"], base["alphas"], base["exhaust"])
+        b_commit = sm.sweep_megakernel_commit_cuda(objective, *(base[a] for a in args),
+                                                   b_full[5])
+        ladder = (base["X"][None] + base["alphas"][:, None, None] * base["P"][None])
+        b_f = fused_obj.value_grad_cuda(objective, ladder.reshape(-1, D), with_grad=False)[0]
+        b_vg = fused_obj.value_grad_cuda(objective, base["X"])
+        b_upd = bu.guarded_update_direction_cuda(upd["H"], upd["dx"], upd["dg"],
+                                                 upd["g_new"], upd["rho"])
+        for N in TINY_LANES:
+            sub = dict(base, **{a: base[a][:N].contiguous() for a in args},
+                       rhs=base["rhs"][:, :N].contiguous())
+            check_megakernels({(f"tiny N={N}", objective): sub})
+            full = sm.sweep_megakernel_full_cuda(objective, *(sub[a] for a in args),
+                                                 sub["rhs"], sub["alphas"], sub["exhaust"])
+            commit = sm.sweep_megakernel_commit_cuda(objective, *(sub[a] for a in args),
+                                                     full[5])
+            require(all(torch.equal(bits(k), bits(b[:N])) for k, b in zip(full, b_full)),
+                    f"tiny N={N} D={D}: B5 differs from the same lanes in a "
+                    f"{TINY_BASE}-lane launch")
+            require(all(torch.equal(bits(k), bits(b[:N])) for k, b in zip(commit, b_commit)),
+                    f"tiny N={N} D={D}: B5b differs from the same lanes in a "
+                    f"{TINY_BASE}-lane launch")
+            rows = ladder[:, :N].reshape(-1, D).contiguous()
+            f = fused_obj.value_grad_cuda(objective, rows, with_grad=False)[0]
+            fp = fused_obj.value_grad_plain(objective, rows, with_grad=False)[0]
+            vg = fused_obj.value_grad_cuda(objective, sub["X"])
+            vgp = fused_obj.value_grad_plain(objective, sub["X"])
+            ea, eb, eg = compare(f, fp), compare(vg[0], vgp[0]), compare(vg[1], vgp[1])
+            require(ea[2] and eb[2] and eg[2], f"tiny N={N} D={D}: B1 disagrees with plain "
+                    f"(ladder f {ea[:2]}, f {eb[:2]}, g {eg[:2]})")
+            require(torch.equal(bits(f.reshape(K_LADDER, N)),
+                                bits(b_f.reshape(K_LADDER, TINY_BASE)[:, :N]))
+                    and all(torch.equal(bits(k), bits(b[:N])) for k, b in zip(vg, b_vg)),
+                    f"tiny N={N} D={D}: B1 differs from the same rows in a "
+                    f"{TINY_BASE}-lane launch")
+            u = bu.guarded_update_direction_cuda(*(upd[a][:N].contiguous() for a in
+                                                   ("H", "dx", "dg", "g_new", "rho")))
+            require(all(torch.equal(bits(k), bits(b[:N])) for k, b in zip(u, b_upd)),
+                    f"tiny N={N} D={D}: B2 differs from the same lanes in a "
+                    f"{TINY_BASE}-lane launch")
+            print(f"check tiny N={N} D={D} {objective}: B1a ladder ({K_LADDER * N} rows) "
+                  f"max_abs_err {ea[0]:.3g}, B1b {max(eb[0], eg[0]):.3g}; B1a, B1b, B2, B5, "
+                  f"B5b bitwise equal to the same lanes in a {TINY_BASE}-lane launch")
+    torch.cuda.synchronize()
+    for D in (5, 128):
+        a = torch.randn(16384, D, generator=gen, device="cuda")
+        b = torch.randn(16384, D, generator=gen, device="cuda")
+        s_all, n_all = torch.sum(a * b, dim=-1), torch.linalg.vector_norm(a, dim=-1)
+        same = {N: (torch.equal(bits(torch.sum(a[:N] * b[:N], dim=-1)), bits(s_all[:N])),
+                    torch.equal(bits(torch.linalg.vector_norm(a[:N], dim=-1)),
+                                bits(n_all[:N])))
+                for N in (1, 2, 3, 4, 5, 8, 15, 16, 17, 64, 1024)}
+        print(f"glue D={D}: row sums / norms of N rows bitwise equal to the same rows "
+              "of 16384: " + ", ".join(f"N={N} {int(x)}/{int(y)}"
+                                       for N, (x, y) in same.items()))
+
+
+def check_tiny_solves(gen):
+    """Phase 3b: the schedules down to buckets of 1, 2, 4 and 8 lanes, end
+    to end. 64 rosenbrock lanes of D, all but n at the optimum (an exactly
+    zero gradient: converged at init) and n from the box (never converged
+    at θ = 1e-30), spread over the four chunks of 16, 5 sweeps, in both
+    batched modes: compact_every=1, repack_every=1 with compact_every=1
+    (lane_chunk 16) and schedule="auto" (window 1, ladders 2 and 20, lane
+    chunk 16) must each equal the static solve (auto on x, fval, grad_norm
+    and status: its shorter ladders probe less)."""
+    import torch
+    from repro_torch.core import BatchedDenseBFGS, EngineOptions, get_objective
+    from repro_torch.core import run_multistart
+
+    obj = get_objective("rosenbrock")
+    spread = torch.tensor([0, 17, 34, 51, 63], device="cuda")
+    schedules = {"compact": dict(compact_every=1),
+                 "repack+compact": dict(lane_chunk=16, repack_every=1, compact_every=1),
+                 "auto": dict(lane_chunk=16, schedule="auto", schedule_every=1,
+                              auto_ladders=(2, 0))}
+    for _, D in TINY_DIMS:
+        for mode in ("batched", "megakernel"):
+            for n in TINY_LANES:
+                x0 = torch.ones(TINY_BASE, D, device="cuda")
+                x0[spread[:n]] = obj.lower + (obj.upper - obj.lower) * torch.rand(
+                    n, D, generator=gen, device="cuda")
+
+                def solve(**kw):
+                    return run_multistart(obj.fn, x0, BatchedDenseBFGS(), EngineOptions(
+                        iter_max=5, theta=1e-30, sweep_mode=mode, **kw), device="cuda")
+
+                static = solve()
+                rows = []
+                for name, kw in schedules.items():
+                    res = solve(**kw)
+                    fields = SAME_FIELDS[:4] if name == "auto" else SAME_FIELDS
+                    bad = same_solve(res, static, fields)
+                    require(not bad, f"tiny solve D={D} {mode} n={n} {name}: {bad} differ "
+                            "from the static solve")
+                    rows.append(f"{name} {res.eval_rows} rows / {res.map_trips} "
+                                "chunk-steps")
+                print(f"check tiny solve D={D} {mode}: {n} active of {TINY_BASE}, "
+                      f"{static.iterations} sweeps, each schedule == static (static "
+                      f"{static.eval_rows} rows / {static.map_trips} chunk-steps; "
+                      + "; ".join(rows) + ")")
+
+
 def _plain_path(objective):
     """The engine's batched objective and BFGS strategy, wired to the plain
     versions instead of the kernels (for the sweep-level comparison)."""
@@ -1006,9 +1213,11 @@ def close_per_lane(got, ref, tol=STATE_TOL):
     import torch
 
     B = ref.shape[0]
+    if B == 0:
+        return 0.0, True
     g, r = got.reshape(B, -1).double(), ref.reshape(B, -1).double()
     scale = r.abs().amax(dim=1).clamp_min(1.0)
-    worst = float(((g - r).abs().amax(dim=1) / scale).max()) if B else 0.0
+    worst = float(((g - r).abs().amax(dim=1) / scale).max())
     return worst, worst <= tol
 
 
@@ -1211,17 +1420,33 @@ def compare_per_lane_sweeps(sname, cfg):
           "lane scale " + ", ".join(f"{k}={v:.3g}" for k, v in worst.items()))
 
 
-def run_solve(cfg):
-    """One solve of cfg on the card, from its seed."""
+def dijet_problem():
+    """The dijet fit's data and NLL (examples/fit_dijet.py): counts drawn
+    at DIJET_TRUE, the NLL over them, its box."""
+    import numpy as np
+    from repro_torch.core.objectives import make_dijet_nll, simulate_dijet_counts
+
+    edges = np.linspace(*DIJET_EDGES)
+    counts = simulate_dijet_counts(np.asarray(DIJET_TRUE), edges, seed=DIJET_SEED)
+    return edges, counts, make_dijet_nll(edges, counts), (-5.0, 15.0)
+
+
+def run_solve(cfg, opts=None):
+    """One solve of cfg on the card, from its seed (with `opts` in place of
+    cfg's options when given)."""
     import torch
     from repro_torch.core import get_objective, sequential_zeus, zeus
 
+    opts = cfg["opts"] if opts is None else opts
+    gen = torch.Generator(device="cuda").manual_seed(cfg["seed"])
+    if cfg.get("dijet"):
+        _, _, nll, (lower, upper) = dijet_problem()
+        return zeus(nll, cfg["dim"], lower, upper, opts, device="cuda", generator=gen)
     obj = get_objective(cfg["objective"])
     if cfg.get("sequential"):
         return sequential_zeus(obj.fn, cfg["seed"], cfg["dim"], obj.lower, obj.upper,
                                cfg["opts"], device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(cfg["seed"])
-    return zeus(obj.fn, cfg["dim"], obj.lower, obj.upper, cfg["opts"], device="cuda",
+    return zeus(obj.fn, cfg["dim"], obj.lower, obj.upper, opts, device="cuda",
                 generator=gen)
 
 
@@ -1235,8 +1460,11 @@ def check_launches(sname, cfg, res, counts):
                     f"{exact[k]}")
         elif k in cfg.get("must", ()):
             require(n > 0, f"{sname}: kernel {k} was not launched on the main path")
-        else:
+        elif k not in cfg.get("may", ()):
             require(n == 0, f"{sname}: kernel {k} launched {n} times off its path")
+    if "check" in cfg:
+        require(cfg["check"](res, counts), f"{sname}: launches {counts} do not fit "
+                f"map_trips {res.raw.map_trips}")
 
 
 def run_solves(solve_cfg):
@@ -1246,6 +1474,8 @@ def run_solves(solve_cfg):
     from repro_torch.kernels import ops
 
     launches = {}
+    statics = {cfg["equals"] for cfg in solve_cfg.values() if "equals" in cfg}
+    kept = {}
     for sname, cfg in solve_cfg.items():
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -1273,11 +1503,18 @@ def run_solves(solve_cfg):
             require(bool(torch.isfinite(res.raw.fval[res.raw.status == CONVERGED]).all()),
                     f"{sname}: a converged lane has a non-finite value")
             print(f"solve {sname}: wall {wall:.4f} s (warm {warm:.4f} s), sweeps "
-                  f"{res.raw.iterations}, chunk-steps {res.raw.map_trips}, n_converged "
-                  f"{res.n_converged}, best_f {best_f:.6g}, pso_best_f "
-                  f"{float(res.pso_best_f):.6g}, launches {json.dumps(launches[sname])}")
+                  f"{res.raw.iterations}, chunk-steps {res.raw.map_trips}, eval_rows "
+                  f"{res.raw.eval_rows}, n_converged {res.n_converged}, best_f "
+                  f"{best_f:.6g}, pso_best_f {float(res.pso_best_f):.6g}, launches "
+                  f"{json.dumps(launches[sname])}")
             if cfg.get("cluster"):
                 time_clustering(res.raw)
+        if sname in statics:
+            kept[sname] = res.raw
+        if "equals" in cfg:
+            check_schedule(sname, cfg, res, kept[cfg["equals"]])
+        if cfg.get("dijet"):
+            check_dijet(res)
         del res
         if cfg.get("compare") in ("batched", "megakernel"):
             compare_sweeps(sname, cfg)
@@ -1285,6 +1522,85 @@ def run_solves(solve_cfg):
             compare_per_lane_sweeps(sname, cfg)
         torch.cuda.empty_cache()
     return launches
+
+
+def same_solve(a, b, fields=SAME_FIELDS):
+    """The fields of two BFGSResults that differ (tensors compared with
+    torch.equal), and iterations and n_converged."""
+    import torch
+
+    bad = [f for f in fields if not torch.equal(getattr(a, f), getattr(b, f))]
+    return bad + [f for f in ("iterations", "n_converged") if getattr(a, f) != getattr(b, f)]
+
+
+def check_schedule(sname, cfg, res, static):
+    """A schedule's solve against its static counterpart: the same lanes
+    (auto plans with shorter ladders consume fewer logical probes, so an
+    auto solve's n_evals is held against its replay instead); for the auto
+    cell, the replay of its trace, equal to it in every field."""
+    import torch
+    from repro_torch.core import schedule_trace_plans
+
+    raw = res.raw
+    auto = cfg["opts"].schedule == "auto"
+    fields = tuple(f for f in SAME_FIELDS if not (auto and f == "n_evals"))
+    bad = same_solve(raw, static, fields)
+    require(not bad, f"{sname}: {bad} differ from {cfg['equals']}'s")
+    require(raw.map_trips <= static.map_trips and raw.eval_rows <= static.eval_rows,
+            f"{sname}: map_trips {raw.map_trips} / eval_rows {raw.eval_rows} above "
+            f"{cfg['equals']}'s {static.map_trips} / {static.eval_rows}")
+    print(f"  {sname} == {cfg['equals']} on {', '.join(fields)}, iterations and "
+          f"n_converged; map_trips {raw.map_trips} vs {static.map_trips}, eval_rows "
+          f"{raw.eval_rows} vs {static.eval_rows}")
+    if not cfg.get("replay"):
+        return
+    plans = schedule_trace_plans(raw.schedule_trace)
+    print(f"  {sname} plans by window: {list(plans)}")
+    replay = dataclasses.replace(cfg["opts"], schedule="replay", schedule_plans=plans)
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = run_solve(cfg, replay)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    bad = same_solve(rep.raw, raw)
+    bad += [f for f in ("eval_rows", "map_trips") if getattr(rep.raw, f) != getattr(raw, f)]
+    if not torch.equal(rep.raw.schedule_trace, raw.schedule_trace):
+        bad.append("schedule_trace")
+    require(not bad, f"{sname}: its replay differs in {bad}")
+    check_launches(f"{sname}-replay", cfg, rep, counts)
+    print(f"solve {sname}-replay: wall {wall:.4f} s, sweeps {rep.raw.iterations}, "
+          f"chunk-steps {rep.raw.map_trips}, eval_rows {rep.raw.eval_rows}, "
+          f"n_converged {rep.n_converged}, launches {json.dumps(counts)}; equal to "
+          f"{sname} in every field, the trace included")
+
+
+def check_dijet(res):
+    """The fit's own criteria (examples/fit_dijet.py): best_f within 1 of
+    the NLL at the true parameters, at least 90% of the pulls within ±2σ;
+    and at least 32 converged lanes."""
+    import numpy as np
+    import torch
+    from repro_torch.core.objectives import dijet_rate
+
+    edges, counts, nll, _ = dijet_problem()
+    true_f = float(nll(torch.tensor(DIJET_TRUE, device="cuda")))
+    fit = res.best_x.cpu()
+    centers = 0.5 * (edges[:-1] + edges[1:])
+    pred = dijet_rate(fit, torch.tensor(centers, dtype=torch.float32)).numpy() * (
+        edges[1:] - edges[:-1])
+    pulls = (counts - pred) / np.sqrt(np.maximum(pred, 1.0))
+    frac2 = float(np.mean(np.abs(pulls) <= 2.0))
+    print(f"  dijet: fit {np.round(fit.numpy(), 4).tolist()} (true {list(DIJET_TRUE)}), "
+          f"nll(fit) {float(res.best_f):.4f}, nll(true) {true_f:.4f}, pulls mean "
+          f"{pulls.mean():.3f} std {pulls.std():.3f}, within 2 sigma {frac2:.1%}, "
+          f"n_converged {res.n_converged}")
+    require(float(res.best_f) <= true_f + 1.0, "dijet: best_f above nll(TRUE) + 1")
+    require(frac2 >= 0.9, f"dijet: {frac2:.1%} of pulls within 2 sigma")
+    require(res.n_converged >= 32, f"dijet: {res.n_converged} lanes converged")
 
 
 def time_clustering(raw):
@@ -2167,6 +2483,12 @@ def main() -> int:
     if sys.argv[1:] == ["--fused"]:
         fused_path()
         return 0
+    if sys.argv[1:] == ["--tiny"]:
+        _build.build_all()
+        gen = torch.Generator(device="cuda").manual_seed(22)
+        check_tiny_buckets(gen)
+        check_tiny_solves(gen)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2207,6 +2529,9 @@ def main() -> int:
                    for k in UPDATE_KERNELS if cell in KERNEL_CELLS[k]})
     mk_cases = megakernel_cases(solve_cfg, gen)
     errors.update(check_megakernels(mk_cases))
+    tiny_gen = torch.Generator(device="cuda").manual_seed(22)
+    check_tiny_buckets(tiny_gen)
+    check_tiny_solves(tiny_gen)
     fl_cases = flash_inputs(gen)
     errors["flash_attention", "lm-prefill"] = (
         check_flash(fl_cases)["phi3-mini prefill"], 0.0, True)

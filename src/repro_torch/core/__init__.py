@@ -30,6 +30,7 @@ from repro_torch.core.engine import (
     Lane,
     VmappedStrategy,
     as_batched_strategy,
+    auto_plan_lattice,
     batch_lanes_init,
     batch_lanes_step,
     get_solver,
@@ -37,6 +38,7 @@ from repro_torch.core.engine import (
     lane_step,
     register_solver,
     run_multistart,
+    schedule_trace_plans,
     solver_names,
 )
 from repro_torch.core.lbfgs import LBFGS, LBFGSOptions, batched_lbfgs

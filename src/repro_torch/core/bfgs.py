@@ -52,12 +52,20 @@ class BFGSOptions:
     # "batched" | "megakernel" | "per_lane"; the JAX package defaults to
     # "per_lane", the port keeps "batched", its kernels' path
     sweep_mode: str = "batched"
-    # not ported yet; any other than the default raises in the engine
-    compact_every: int = 0  # A8
-    repack_every: int = 0  # A8
-    # adaptive Armijo ladder length on the batched modes (0 = full ladder)
+    # sweep schedules of the batched modes (core/engine.py "Sweep
+    # schedules"): active-lane compaction and cross-chunk repacking cadences
+    # (0 = off; repacking needs lane_chunk), the adaptive Armijo ladder
+    # length (0 = full ladder), and "static" | "auto" | "replay" with the
+    # controller's window, replayed plans and plan lattice knobs
+    compact_every: int = 0
+    repack_every: int = 0
     ladder_len: int = 0
-    schedule: str = "static"  # A8
+    schedule: str = "static"
+    schedule_every: int = 4
+    schedule_plans: Optional[tuple] = None
+    auto_ladders: Optional[tuple] = None
+    auto_active_frac: float = 0.5
+    # not ported yet; any other than the default raises in the engine
     auto_cost_model: bool = False  # A12
     retry_budget: int = 0  # A11
     checkpoint_every: int = 0  # A11
@@ -181,6 +189,10 @@ def _engine_opts(opts, lane_chunk: Optional[int] = None,
         repack_every=opts.repack_every,
         ladder_len=opts.ladder_len,
         schedule=opts.schedule,
+        schedule_every=opts.schedule_every,
+        schedule_plans=opts.schedule_plans,
+        auto_ladders=opts.auto_ladders,
+        auto_active_frac=opts.auto_active_frac,
         auto_cost_model=opts.auto_cost_model,
         retry_budget=opts.retry_budget,
         checkpoint_every=opts.checkpoint_every,

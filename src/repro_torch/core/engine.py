@@ -42,7 +42,7 @@ leading lane axis B.
       sends every other solve to the batched sweep with a RuntimeWarning.
 
 `run_multistart` is a host loop: `lax.while_loop` and `lax.map` become
-Python loops, and the two stop counts are read back to the host in one
+Python loops, and the stop counts are read back to the host in one
 transfer per sweep. With `lane_chunk=C` the lanes are held as ceil(B/C)
 chunks (the last padded with frozen lanes) from start to finish, and each
 sweep steps them one after another, replacing each chunk's state as it
@@ -51,16 +51,32 @@ O(C·D²) on top of it, while the stop counts stay sweep-synchronised across
 chunks. Every evaluator on the path is row-independent, so a chunked solve
 is array-equal to the unchunked one.
 
+The batched modes take the reference's sweep schedules ("Sweep schedules"
+below), each array-equal to the static sweep:
+  compact_every=n — every n sweeps, stably partition each chunk's lanes
+      (active first) and step only the smallest power-of-two prefix that
+      holds the active ones;
+  repack_every=n (with lane_chunk) — every n sweeps, gather the active
+      lanes of all chunks into the smallest power-of-two number of full
+      chunks, and step only those (compacted inside with compact_every);
+  schedule="auto" — a controller picks a plan per window of
+      schedule_every sweeps from {static, dynamic} × candidate ladder
+      lengths (`auto_plan_lattice`), recorded in BFGSResult.schedule_trace;
+      schedule="replay" forces a recorded plan sequence
+      (`schedule_trace_plans`).
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-compact_every, repack_every and schedule != "static" (A8); retry_budget,
-checkpoint_every/checkpoint_dir and fault_plan (A11); auto_cost_model (A12).
+retry_budget, checkpoint_every/checkpoint_dir and fault_plan (A11);
+auto_cost_model (A12).
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import warnings
 from typing import Any, Callable, Dict, NamedTuple, Optional, Protocol, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch._device import check_dtype, resolve_device
@@ -105,8 +121,13 @@ class BFGSResult(NamedTuple):
     # physical objective rows the sweeps evaluated (ladder trials + value+
     # grad rows, padding lanes included)
     eval_rows: Optional[int] = None
-    # chunk steps issued: ceil(B / lane_chunk) per sweep, 1 unchunked
+    # chunk steps issued: ceil(B / lane_chunk) per sweep, 1 unchunked, the
+    # repacked chunk count under repack_every
     map_trips: Optional[int] = None
+    # (n_windows, n_plans) int32: the plan each window of schedule_every
+    # sweeps ran (schedule="auto"/"replay", else None); one-hot rows for the
+    # windows run, zero rows after the stop
+    schedule_trace: Optional[torch.Tensor] = None
     n_restarts: Optional[torch.Tensor] = None  # (B,) int32; zeros (no retry yet)
     n_failed: Optional[int] = None  # lanes that ended failed
 
@@ -126,12 +147,27 @@ class EngineOptions:
     # "batched" | "megakernel" | "per_lane". The JAX package defaults to
     # "per_lane"; the port keeps "batched", its kernels' path.
     sweep_mode: str = "batched"
-    # not ported yet; any other than the default raises (ROADMAP item)
-    compact_every: int = 0  # A8
-    repack_every: int = 0  # A8
+    # active-lane compaction cadence in sweeps, batched modes (0 = off)
+    compact_every: int = 0
+    # cross-chunk repacking cadence in sweeps, batched modes with lane_chunk
+    # (0 = off)
+    repack_every: int = 0
     # adaptive Armijo ladder length on the batched modes (0 = full ladder)
     ladder_len: int = 0
-    schedule: str = "static"  # A8
+    # "static" (the three knobs above), "auto" (the controller picks a plan
+    # per window) or "replay" (schedule_plans forced); batched modes
+    schedule: str = "static"
+    schedule_every: int = 4  # the controller's window, in sweeps
+    # one plan index per window (schedule="replay"); schedule_trace_plans()
+    # decodes them from a schedule_trace
+    schedule_plans: Optional[Tuple[int, ...]] = None
+    # the controller's candidate ladder lengths (0 = the full ladder); None
+    # is {0} and the powers of two below ls_iters
+    auto_ladders: Optional[Tuple[int, ...]] = None
+    # the dynamic plan latches once fewer than this share of the lanes is
+    # active
+    auto_active_frac: float = 0.5
+    # not ported yet; any other than the default raises (ROADMAP item)
     auto_cost_model: bool = False  # A12
     retry_budget: int = 0  # A11
     checkpoint_every: int = 0  # A11
@@ -140,8 +176,9 @@ class EngineOptions:
 
 
 def check_engine_options(opts: EngineOptions) -> None:
-    """Raise on options this port does not run yet, naming their ROADMAP
-    item, and on values the reference rejects too."""
+    """Raise ValueError on what the reference rejects, and
+    NotImplementedError, naming the ROADMAP item, on options this port does
+    not run yet."""
     if opts.sweep_mode not in _BATCHED_MODES + ("per_lane",):
         raise ValueError(
             f"unknown sweep_mode {opts.sweep_mode!r}; expected 'per_lane', "
@@ -161,9 +198,10 @@ def check_engine_options(opts: EngineOptions) -> None:
             raise ValueError(
                 f"{field} > 0 requires sweep_mode='batched'/'megakernel' (got "
                 f"{opts.sweep_mode!r})")
-        if value > 0:
-            raise NotImplementedError(
-                f"{field}={value} is not ported yet (ROADMAP A8)")
+    if opts.repack_every > 0 and opts.lane_chunk is None:
+        raise ValueError(
+            "repack_every > 0 repacks lanes across chunks and needs lane_chunk "
+            "set (got lane_chunk=None)")
     if opts.ladder_len < 0:
         raise ValueError(f"ladder_len must be >= 0 (got {opts.ladder_len})")
     if opts.ladder_len > 0 and not batched:
@@ -171,14 +209,46 @@ def check_engine_options(opts: EngineOptions) -> None:
             "ladder_len > 0 shortens the speculative batched ladder and requires "
             f"sweep_mode='batched'/'megakernel' (got {opts.sweep_mode!r}); the "
             "per-lane sequential search is already adaptive")
+    if opts.schedule not in ("static", "auto", "replay"):
+        raise ValueError(
+            f"unknown schedule {opts.schedule!r}; expected 'static', 'auto' or "
+            "'replay'")
     if opts.schedule != "static":
         if not batched:
             raise ValueError(
                 f"schedule={opts.schedule!r} requires sweep_mode='batched'/"
                 f"'megakernel' (got {opts.sweep_mode!r})")
-        raise NotImplementedError(
-            f"schedule={opts.schedule!r} is not ported yet (ROADMAP A8)")
+        if opts.compact_every or opts.repack_every or opts.ladder_len:
+            raise ValueError(
+                f"schedule={opts.schedule!r} owns the cadence/ladder plan; leave "
+                "repack_every/compact_every/ladder_len at 0 (got repack_every="
+                f"{opts.repack_every}, compact_every={opts.compact_every}, "
+                f"ladder_len={opts.ladder_len})")
+        if opts.schedule_every <= 0:
+            raise ValueError(
+                f"schedule_every must be >= 1 (got {opts.schedule_every})")
+        n_plans = 2 * len(_auto_ladders(opts))  # raises on bad auto_ladders
+        if opts.schedule == "replay":
+            if opts.schedule_plans is None:
+                raise ValueError(
+                    "schedule='replay' needs schedule_plans (one plan index per "
+                    "window; see schedule_trace_plans())")
+            plans = tuple(int(p) for p in opts.schedule_plans)
+            n_windows = max(1, -(-opts.iter_max // opts.schedule_every))
+            if len(plans) < n_windows:
+                raise ValueError(
+                    f"schedule_plans has {len(plans)} entries; iter_max="
+                    f"{opts.iter_max} at schedule_every={opts.schedule_every} "
+                    f"needs {n_windows}")
+            if any(p < 0 or p >= n_plans for p in plans):
+                raise ValueError(
+                    f"schedule_plans entries must be in [0, {n_plans}) for this "
+                    f"plan lattice (got {plans})")
     if opts.auto_cost_model:
+        if opts.schedule != "auto":
+            raise ValueError(
+                "auto_cost_model=True re-scores the schedule='auto' plan lattice "
+                f"and requires schedule='auto' (got {opts.schedule!r})")
         raise NotImplementedError(
             "auto_cost_model is not ported yet (ROADMAP A12)")
     if (opts.retry_budget or opts.checkpoint_every or opts.checkpoint_dir
@@ -416,7 +486,8 @@ def batch_lanes_step(bobj, bstrategy: BatchedDirectionStrategy,
     rows this step evaluated ((ladder trials + 1) per lane in the stack,
     frozen lanes included) and rung the (B,) int32 accepted Armijo rung per
     lane (K when exhausted). The reference returns the histogram of `rung`
-    over the active lanes instead, which only its sweep scheduler reads."""
+    over the active lanes instead; here the sweep schedule folds `rung` into
+    the window's histogram itself (run_multistart, schedule="auto")."""
     X, F, G, P = lanes.x, lanes.f, lanes.g, lanes.p
     active = torch.logical_not(torch.logical_or(lanes.converged, lanes.failed))
 
@@ -538,13 +609,411 @@ def megakernel_lanes_step(bobj, bstrategy: BatchedDirectionStrategy,
                            P_next, n_evals, rung)
 
 
-def _stop_counts(chunks) -> Tuple[int, int]:
-    """(n_converged, n_active) over all chunks, read back in one transfer."""
-    per_chunk = [torch.stack([torch.sum(ls.converged),
-                              torch.sum(~(ls.converged | ls.failed))])
-                 for ls in chunks]
-    n_conv, n_act = torch.stack(per_chunk).sum(dim=0).tolist()
-    return n_conv, n_act
+# ---------------------------------------------------------------------------
+# Sweep schedules of the batched modes: active-lane compaction
+# (compact_every), cross-chunk repacking (repack_every), and the plan
+# controller (schedule="auto") with its replay (schedule="replay").
+#
+# The reference compiles each schedule as lax.switch branches over
+# power-of-two buckets inside its while loop. Here the loop is on the host,
+# which reads the stop counts back once per sweep; that one transfer also
+# carries each group's active count (and, under "auto", the window's
+# accepted-rung histogram), so every bucket and plan is chosen on the host
+# from numbers it already has. The partitions themselves (a stable argsort)
+# stay on the device. A compacted or repacked step gathers the rows it runs
+# with index_select, steps them, and writes them back with index_copy_ into
+# the solve's own stacks; rows outside the bucket are not touched. Every
+# evaluator on the path is row-independent, so a lane computes the same bits
+# at any bucket size, and the schedules are array-equal to the static sweep.
+# The buckets are the reference's, and so are eval_rows and map_trips.
+# ---------------------------------------------------------------------------
+def _active_mask(lanes) -> torch.Tensor:
+    return torch.logical_not(torch.logical_or(lanes.converged, lanes.failed))
+
+
+def _compaction_buckets(n: int) -> Tuple[int, ...]:
+    """Power-of-two prefix sizes up to n; the top bucket is always n itself
+    (so a mostly-active group runs exactly the uncompacted sweep)."""
+    sizes = []
+    s = 1
+    while s < n:
+        sizes.append(s)
+        s *= 2
+    sizes.append(n)
+    return tuple(sizes)
+
+
+def _bucket_index(buckets: Tuple[int, ...], count: int) -> int:
+    """Index of the smallest bucket holding `count` (the top one if none
+    does): the reference's searchsorted(side="left") and clip."""
+    return min(bisect.bisect_left(buckets, count), len(buckets) - 1)
+
+
+def _partition(active: torch.Tensor) -> torch.Tensor:
+    """The stable partition of the last axis, active lanes first, as int64
+    indices: an argsort on an integer key, so the active lanes keep their
+    relative order and so do the frozen ones."""
+    return torch.argsort(torch.logical_not(active).to(torch.uint8), dim=-1,
+                         stable=True)
+
+
+def _compaction_plan(active: torch.Tensor, buckets: Tuple[int, ...],
+                     n_active: Optional[int] = None) -> Tuple[torch.Tensor, int]:
+    """(perm, bucket_idx) for the current active set: the stable partition
+    and the smallest bucket covering the active count. The engine passes the
+    count it read back with the stop counts; without it, it is read here."""
+    if n_active is None:
+        n_active = int(torch.sum(active))
+    return _partition(active), _bucket_index(buckets, n_active)
+
+
+def _repack_plan(active_flat: torch.Tensor, chunk: int, cbuckets: Tuple[int, ...],
+                 n_active: Optional[int] = None) -> Tuple[torch.Tensor, int]:
+    """(gperm, gcidx) over the flat lane axis: the stable partition and the
+    smallest chunk-count bucket covering ceil(active / chunk) full chunks
+    (bucket 1 when nothing is active)."""
+    if n_active is None:
+        n_active = int(torch.sum(active_flat))
+    return _partition(active_flat), _bucket_index(cbuckets, -(-n_active // chunk))
+
+
+def _tree_map(fn, tree, *rest):
+    """fn over the leaves of a tensor or NamedTuple of lane stacks (and of
+    trees of the same structure in `rest`)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    return type(tree)(*(_tree_map(fn, *parts) for parts in zip(tree, *rest)))
+
+
+def _take(lanes, idx: torch.Tensor):
+    return _tree_map(lambda a: a.index_select(0, idx), lanes)
+
+
+def _put(lanes, idx: torch.Tensor, sub) -> None:
+    """Write the rows of `sub` back to rows `idx` of `lanes`, in place."""
+    _tree_map(lambda a, s: a.index_copy_(0, idx, s), lanes, sub)
+
+
+def _owned(lanes, foreign=()):
+    """`lanes` with every leaf a contiguous tensor of storage of its own: a
+    leaf that shares storage with an earlier leaf or with `foreign` (the
+    caller's starts) is cloned, so that writing rows in place changes no
+    other leaf and no caller's tensor."""
+    seen = set(foreign)
+
+    def own(a):
+        if a.untyped_storage().data_ptr() in seen or not a.is_contiguous():
+            a = a.clone(memory_format=torch.contiguous_format)
+        seen.add(a.untyped_storage().data_ptr())
+        return a
+
+    return _tree_map(own, lanes)
+
+
+def _auto_ladders(opts: EngineOptions) -> Tuple[int, ...]:
+    """Candidate ladder lengths of the controller, sorted by effective
+    length (0 = the full ls_iters ladder) with the full ladder last: index
+    n_ladders - 1 is the startup and most conservative plan."""
+    K = opts.ls_iters
+    if opts.auto_ladders is not None:
+        cand = {int(L) for L in opts.auto_ladders}
+        for L in cand:
+            if L < 0 or L > K:
+                raise ValueError(
+                    f"auto_ladders entries must be in [0, ls_iters={K}] (got {L})")
+    else:
+        cand = {0}
+        L = 1
+        while L < K:
+            cand.add(L)
+            L *= 2
+    cand.discard(K)  # ladder_len == K is the full ladder; canonical spelling
+    cand.add(0)
+    return tuple(sorted(cand - {0})) + (0,)
+
+
+def auto_plan_lattice(opts: EngineOptions) -> Tuple[Tuple[int, int], ...]:
+    """The (dynamic, ladder_len) plans schedule="auto" can pick, in plan
+    index order (p = dynamic · n_ladders + ladder index). dynamic = 1 is
+    repack + compact when chunked, prefix compaction when not. Decode
+    schedule_trace rows against this."""
+    ladders = _auto_ladders(opts)
+    return tuple((dyn, L) for dyn in (0, 1) for L in ladders)
+
+
+def schedule_trace_plans(trace) -> Tuple[int, ...]:
+    """Decode a schedule_trace into per-window plan indices, for
+    EngineOptions(schedule="replay", schedule_plans=...). All-zero rows
+    (windows after an early stop) decode to plan 0; a replay never runs
+    them either."""
+    t = trace.cpu().numpy() if isinstance(trace, torch.Tensor) else np.asarray(trace)
+    return tuple(int(np.argmax(row)) if row.any() else 0 for row in t)
+
+
+class _AutoState(NamedTuple):
+    """The controller's state between windows: the current plan index,
+    whether the dynamic plan has latched, and the last window's ladder
+    candidate (-1 until a window had a histogram)."""
+
+    plan: int
+    dyn_on: bool
+    prev_lidx: int
+
+
+def _auto_controller(state: _AutoState, n_active: int, hist, eff: Tuple[int, ...],
+                     act_thresh: float) -> _AutoState:
+    """The next window's plan, from the active count at the window boundary
+    and the last window's accepted-rung histogram `hist` (ls_iters + 1 ints,
+    bin ls_iters = exhausted), all plain ints; `eff` are the candidates'
+    effective ladder lengths, ascending (the full ladder last).
+
+    The reference's in-carry controller, rule for rule: the dynamic plan
+    latches once the active count drops below act_thresh; the ladder target
+    is the smallest candidate covering p90 + 1 rungs (p90 the first rung at
+    which the cumulative count reaches ceil(0.9 · total)); a shorter
+    candidate is adopted at once, a longer one only when the previous
+    window mapped to the same candidate; an empty window keeps the plan and
+    the previous candidate."""
+    n_ladders = len(eff)
+    dyn_on = state.dyn_on or n_active < act_thresh
+    total = sum(hist)
+    need = (9 * total + 9) // 10  # ceil(0.9 · total)
+    r90, csum = 0, 0
+    for r, h in enumerate(hist):
+        csum += h
+        if csum >= need:
+            r90 = r
+            break
+    lidx = min(bisect.bisect_left(eff, r90 + 1), n_ladders - 1)
+    cur = state.plan % n_ladders
+    stable_up = lidx > cur and lidx == state.prev_lidx
+    adopt = total > 0 and (lidx < cur or stable_up)
+    new_lidx = lidx if adopt else cur
+    return _AutoState(plan=(n_ladders if dyn_on else 0) + new_lidx, dyn_on=dyn_on,
+                      prev_lidx=lidx if total > 0 else state.prev_lidx)
+
+
+class _Counts(NamedTuple):
+    """What the host reads back after a sweep, in one transfer."""
+
+    n_conv: int
+    n_act: int
+    act: Tuple[int, ...]  # active lanes per group
+    extra: Tuple[Tuple[int, ...], ...]  # the extra device counts, in order
+
+
+def _stop_counts(groups, extras=()) -> _Counts:
+    """Each group's converged and active counts, and the extra device
+    counts the next sweep plans from, read back in one transfer."""
+    per = torch.stack([torch.stack([torch.sum(g.converged), torch.sum(_active_mask(g))])
+                       for g in groups])
+    parts = [per.flatten()] + [e.flatten().to(torch.int64) for e in extras]
+    vals = torch.cat(parts).tolist() if len(parts) > 1 else parts[0].tolist()
+    n = len(groups)
+    conv, act = vals[0:2 * n:2], tuple(vals[1:2 * n:2])
+    extra, at = [], 2 * n
+    for e in extras:
+        extra.append(tuple(vals[at:at + e.numel()]))
+        at += e.numel()
+    return _Counts(n_conv=sum(conv), n_act=sum(act), act=act, extra=tuple(extra))
+
+
+class _Sweeper:
+    """Runs the sweeps of one solve under its schedule. The lanes are
+    `groups`, a list of n row groups of `width` lanes each (the chunks, or
+    one group of all lanes), which `sweep` replaces or rewrites in place;
+    `flat` is their concatenation, made when a repacked sweep first needs
+    it, with the groups then views of it, until a whole-group step replaces
+    them again.
+
+    `step_for(L)` is the sweep step at ladder length L (opts.ladder_len for
+    the static schedules): lanes -> (lanes', rows). `extras(k)` are the
+    device counts to read back with the stop counts before sweep k, and
+    `sweep(k, counts)` plans and runs sweep k, returning (rows, trips)."""
+
+    def __init__(self, opts: EngineOptions, groups, width: int, n_lanes: int,
+                 step_for: Callable[[int], Callable], hist: Optional[torch.Tensor]):
+        self.opts = opts
+        self.groups = groups
+        self.width = width
+        self.n = len(groups)
+        self.step_for = step_for
+        self.hist = hist
+        self.flat = None
+        self.chunked = self.n > 1
+        self.compacting = opts.compact_every > 0
+        self.repacking = opts.repack_every > 0 and self.chunked
+        self.buckets = _compaction_buckets(width)
+        self.cbuckets = _compaction_buckets(self.n)
+        self.plans = None  # per-group (perm, size) of the compacted sweep
+        self.gperm, self.m, self.rows_of = None, self.n, None  # the repack plan
+        self.scheduling = opts.schedule != "static"
+        if self.scheduling:
+            every = opts.schedule_every
+            self.ladders = _auto_ladders(opts)
+            self.eff = tuple(L if L > 0 else opts.ls_iters for L in self.ladders)
+            n_windows = max(1, -(-opts.iter_max // every))
+            self.trace = np.zeros((n_windows, 2 * len(self.ladders)), np.int32)
+            self.act_thresh = opts.auto_active_frac * n_lanes
+            self.state = _AutoState(plan=len(self.ladders) - 1, dyn_on=False,
+                                    prev_lidx=-1)
+
+    # -- plans -------------------------------------------------------------
+    def _masks(self):
+        return torch.cat([_active_mask(g) for g in self.groups])
+
+    def _full_ladder(self, L: int) -> bool:
+        return L <= 0 or L >= self.opts.ls_iters
+
+    def _compaction_plans(self, act):
+        """A (perm, size) plan for each group from its active count."""
+        plans = [_compaction_plan(_active_mask(g), self.buckets, a)
+                 for g, a in zip(self.groups, act)]
+        return [(perm, self.buckets[bidx]) for perm, bidx in plans]
+
+    def _repack(self, n_active: int) -> None:
+        """Refresh the repack plan: the flat stable partition and m, the
+        smallest chunk-count bucket covering the active lanes."""
+        self.gperm, gcidx = _repack_plan(self._masks(), self.width, self.cbuckets,
+                                         n_active)
+        self.m = self.cbuckets[gcidx]
+
+    def _repacked_rows(self, sizes, L: int):
+        """The flat rows each of the first m repacked chunks steps: chunk j is
+        rows gperm[jC:(j+1)C], compacted to its first sizes[j] rows by the
+        stable partition of its own active flags (sizes None: no
+        compaction). None when the plan covers every row once at the full
+        ladder: the static sweep then steps the same lanes, to the same
+        bits and counters, without a gather."""
+        C = self.width
+        if (self.m == self.n and self._full_ladder(L)
+                and (sizes is None or all(s == C for s in sizes))):
+            return None
+        chunks = self.gperm.view(self.n, C)[:self.m]
+        if sizes is None:
+            return list(chunks)
+        cperm = _partition(self._masks()[chunks])
+        return [rows if s == C else rows.index_select(0, cperm[j, :s])
+                for j, (rows, s) in enumerate(zip(chunks, sizes))]
+
+    def _inner_sizes(self, active_per_chunk):
+        return [self.buckets[_bucket_index(self.buckets, a)] for a in active_per_chunk]
+
+    def _sizes_after_repack(self, n_active: int):
+        """Active lanes of each repacked chunk right after a repack refresh:
+        the partition puts them first, so they fill the chunks in order."""
+        C = self.width
+        return self._inner_sizes([min(C, max(0, n_active - j * C))
+                                  for j in range(self.m)])
+
+    # -- executors ---------------------------------------------------------
+    def _static(self, step):
+        rows = 0
+        for i, lanes in enumerate(self.groups):
+            self.groups[i], r = step(lanes)
+            rows += r
+        self.flat = None
+        return rows, self.n
+
+    def _compacted(self, step, plans):
+        rows = 0
+        for i, (perm, size) in enumerate(plans):
+            if size == self.width:
+                # the bucket is the whole group: the same lanes, in place
+                self.groups[i], r = step(self.groups[i])
+                self.flat = None
+            else:
+                idx = perm[:size]
+                sub, r = step(_take(self.groups[i], idx))
+                _put(self.groups[i], idx, sub)
+            rows += r
+        return rows, self.n
+
+    def _repacked(self, step, rows_of):
+        if rows_of is None:
+            return self._static(step)
+        if self.flat is None:
+            self.flat = _tree_map(lambda *parts: torch.cat(parts), *self.groups)
+            C = self.width
+            self.groups[:] = [_tree_map(lambda a: a[i * C:(i + 1) * C], self.flat)
+                              for i in range(self.n)]
+        rows = 0
+        for idx in rows_of:
+            sub, r = step(_take(self.flat, idx))
+            _put(self.flat, idx, sub)
+            rows += r
+        return rows, self.m
+
+    # -- one sweep ---------------------------------------------------------
+    def extras(self, k: int):
+        """Device counts the host needs before sweep k plans, read back with
+        the stop counts after sweep k - 1."""
+        opts = self.opts
+        if self.scheduling:
+            if self.hist is not None and k > 0 and k % opts.schedule_every == 0:
+                return (self.hist,)
+            return ()
+        if (self.repacking and self.compacting and k > 0 and k % opts.compact_every == 0
+                and k % opts.repack_every != 0):
+            # a compaction refresh inside the standing repack plan needs the
+            # active count of each repacked chunk
+            act = self._masks()[self.gperm].view(self.n, self.width)[:self.m]
+            return (torch.sum(act, dim=1),)
+        return ()
+
+    def sweep(self, k: int, counts: _Counts):
+        opts = self.opts
+        if self.scheduling:
+            return self._scheduled(k, counts)
+        L = opts.ladder_len
+        step = self.step_for(L)
+        if self.repacking:
+            renew_g = k % opts.repack_every == 0
+            if renew_g:
+                self._repack(counts.n_act)
+            if self.compacting and (renew_g or k % opts.compact_every == 0):
+                sizes = (self._sizes_after_repack(counts.n_act) if renew_g
+                         else self._inner_sizes(counts.extra[0]))
+                self.rows_of = self._repacked_rows(sizes, L)
+            elif renew_g:
+                self.rows_of = self._repacked_rows(None, L)
+            return self._repacked(step, self.rows_of)
+        if self.compacting:
+            if k % opts.compact_every == 0:
+                self.plans = self._compaction_plans(counts.act)
+            return self._compacted(step, self.plans)
+        return self._static(step)
+
+    def _scheduled(self, k: int, counts: _Counts):
+        opts = self.opts
+        n_ladders = len(self.ladders)
+        if k % opts.schedule_every == 0:
+            # a window boundary: decide the plan, count it in the trace, and
+            # refresh the gather plans when it is dynamic
+            w = k // opts.schedule_every
+            if opts.schedule == "replay":
+                self.state = self.state._replace(plan=int(opts.schedule_plans[w]))
+            else:
+                hist = counts.extra[0] if counts.extra else (0,) * (opts.ls_iters + 1)
+                self.state = _auto_controller(self.state, counts.n_act, hist, self.eff,
+                                              self.act_thresh)
+                self.hist.zero_()
+            self.trace[w, self.state.plan] += 1
+            if self.state.plan >= n_ladders:
+                L = self.ladders[self.state.plan % n_ladders]
+                if self.chunked:
+                    self._repack(counts.n_act)
+                    self.rows_of = self._repacked_rows(
+                        self._sizes_after_repack(counts.n_act), L)
+                else:
+                    self.plans = self._compaction_plans(counts.act)
+        plan = self.state.plan
+        step = self.step_for(self.ladders[plan % n_ladders])
+        if plan < n_ladders:
+            return self._static(step)
+        if self.chunked:
+            return self._repacked(step, self.rows_of)
+        return self._compacted(step, self.plans)
 
 
 def run_multistart(
@@ -563,7 +1032,11 @@ def run_multistart(
     strategy: a per-lane DirectionStrategy (core/bfgs.DenseBFGS,
               core/lbfgs.LBFGS) or, for the batched modes only, a
               batch-level one (core/bfgs.BatchedDenseBFGS).
-    device:   "cuda" (default) or "cpu"; no silent CPU fallback."""
+    device:   "cuda" (default) or "cpu"; no silent CPU fallback.
+
+    On the batched modes, `compact_every`, `repack_every` and `schedule`
+    choose the sweep schedule (see "Sweep schedules" above); every schedule
+    is array-equal to the static sweep."""
     check_engine_options(opts)
     dev = resolve_device(device)
     if isinstance(x0, torch.Tensor):
@@ -575,6 +1048,7 @@ def run_multistart(
     C = opts.lane_chunk if opts.lane_chunk is not None and 0 < opts.lane_chunk < B else B
     n_chunks = -(-B // C)
     pad = n_chunks * C - B
+    hist = None
 
     if opts.sweep_mode in _BATCHED_MODES:
         bobj = as_batched(f, ad_mode=opts.ad_mode)
@@ -588,13 +1062,24 @@ def run_multistart(
                 warnings.warn(
                     f"sweep_mode='megakernel': {reason}; running the batched "
                     "sweep instead (the same results)", RuntimeWarning, stacklevel=2)
+        if opts.schedule == "auto":
+            # the window's accepted-rung histogram over the active lanes
+            # (bin ls_iters = exhausted), read by the controller
+            hist = torch.zeros((opts.ls_iters + 1,), dtype=torch.int64, device=dev)
 
         def init_chunk(X):
             return batch_lanes_init(bobj, bstrategy, X, opts.theta)
 
-        def step_chunk(lanes):
-            lanes, rows, _ = step_impl(bobj, bstrategy, opts, lanes)
-            return lanes, rows
+        def step_for(L):
+            sopts = opts if L == opts.ladder_len else dataclasses.replace(opts, ladder_len=L)
+
+            def step(lanes):
+                new, rows, rung = step_impl(bobj, bstrategy, sopts, lanes)
+                if hist is not None:
+                    hist.scatter_add_(0, rung.long(), _active_mask(lanes).long())
+                return new, rows
+
+            return step
 
         eval_rows = n_chunks * C  # init: one value+grad row per lane
     else:
@@ -608,11 +1093,11 @@ def run_multistart(
             return lane_init(obj.value_and_grad_batch, strategy, X, opts.theta,
                              opts.ad_mode)
 
-        def step_chunk(lanes):
+        def step_for(L):
             # rows are not instrumented on the per-lane path (as in the
             # reference, eval_rows stays 0)
-            return lane_step(obj.value_batch, obj.value_and_grad_batch, strategy,
-                             opts, lanes), 0
+            return lambda lanes: (lane_step(obj.value_batch, obj.value_and_grad_batch,
+                                            strategy, opts, lanes), 0)
 
         eval_rows = 0
 
@@ -625,15 +1110,20 @@ def run_multistart(
         is_pad = torch.arange(C, device=dev) >= C - pad
         chunks[-1] = last._replace(converged=last.converged & ~is_pad,
                                    failed=last.failed | is_pad)
+    if opts.compact_every or opts.repack_every or opts.schedule != "static":
+        # the schedules write rows back in place: no leaf may share storage
+        # with another or with the caller's starts
+        chunks = [_owned(ls, {x0.untyped_storage().data_ptr()}) for ls in chunks]
+    sweeper = _Sweeper(opts, chunks, C, B, step_for, hist)
 
-    k = 0
-    n_conv, n_act = _stop_counts(chunks)
-    while k < opts.iter_max and n_conv < required_c and n_act > 0:
-        for i in range(n_chunks):
-            chunks[i], rows = step_chunk(chunks[i])
-            eval_rows += rows
+    k = map_trips = 0
+    counts = _stop_counts(chunks)
+    while k < opts.iter_max and counts.n_conv < required_c and counts.n_act > 0:
+        rows, trips = sweeper.sweep(k, counts)
+        eval_rows += rows
+        map_trips += trips
         k += 1
-        n_conv, n_act = _stop_counts(chunks)
+        counts = _stop_counts(chunks, sweeper.extras(k))
 
     # join the per-lane fields the result reports; the direction state is
     # dropped, never copied into one stack
@@ -656,7 +1146,9 @@ def run_multistart(
         n_converged=int(torch.sum(converged)),
         n_evals=joined("n_evals"),
         eval_rows=eval_rows,
-        map_trips=n_chunks * k,
+        map_trips=map_trips,
+        schedule_trace=(torch.as_tensor(sweeper.trace, device=dev)
+                        if sweeper.scheduling else None),
         n_restarts=torch.zeros((B,), dtype=torch.int32, device=dev),
         n_failed=int(torch.sum(failed)),
     )

@@ -41,12 +41,20 @@ class LBFGSOptions:
     # "batched" | "megakernel" | "per_lane"; the JAX package defaults to
     # "per_lane", the port keeps "batched" as for BFGSOptions
     sweep_mode: str = "batched"
-    # not ported yet; any other than the default raises in the engine
-    compact_every: int = 0  # A8
-    repack_every: int = 0  # A8
-    # adaptive Armijo ladder length on the batched modes (0 = full ladder)
+    # sweep schedules of the batched modes (core/engine.py "Sweep
+    # schedules"): active-lane compaction and cross-chunk repacking cadences
+    # (0 = off; repacking needs lane_chunk), the adaptive Armijo ladder
+    # length (0 = full ladder), and "static" | "auto" | "replay" with the
+    # controller's window, replayed plans and plan lattice knobs
+    compact_every: int = 0
+    repack_every: int = 0
     ladder_len: int = 0
-    schedule: str = "static"  # A8
+    schedule: str = "static"
+    schedule_every: int = 4
+    schedule_plans: Optional[tuple] = None
+    auto_ladders: Optional[tuple] = None
+    auto_active_frac: float = 0.5
+    # not ported yet; any other than the default raises in the engine
     auto_cost_model: bool = False  # A12
     retry_budget: int = 0  # A11
     checkpoint_every: int = 0  # A11

@@ -1,11 +1,10 @@
-"""Benchmark objective functions from the paper (§V-B).
+"""Benchmark objective functions from the paper (§V-B), plus the dijet
+model of its application (§V-G).
 
 Port of src/repro/core/objectives.py. Every objective is written in torch
 over the last axis, so the same function takes one point (D,) -> () or a
 batch (..., D) -> (...), vmaps, and differentiates in forward or reverse
 mode. Each comes with its search box and optimum.
-
-The dijet negative log-likelihood of the JAX package is not ported yet.
 """
 from __future__ import annotations
 
@@ -75,6 +74,71 @@ def goldstein_price(x: torch.Tensor) -> torch.Tensor:
 def sphere(x: torch.Tensor) -> torch.Tensor:
     """Convex sanity objective (not in the paper)."""
     return torch.sum(x * x, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Dijet mass spectrum fit (paper §V-G / Fig. 5).
+#
+# The CMS/ATLAS dijet parameterisation
+#   dN/dm = p0 · (1 - m/√s)^p1 / (m/√s)^(p2 + p3·log(m/√s)),
+# fitted in (log p0, p1, p2, p3) by the Poisson negative log-likelihood of
+# binned counts. Float32 throughout, the port's one dtype; the constants
+# of an NLL are copied to a device once, at its first call there.
+# ---------------------------------------------------------------------------
+SQRT_S = 13000.0  # GeV
+
+
+def dijet_rate(params: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """dN/dm at masses m (n,) for params (..., 4) -> (..., n)."""
+    logp0, p1, p2, p3 = (params[..., i, None] for i in range(4))
+    xm = m / SQRT_S
+    log_rate = logp0 + p1 * torch.log1p(-xm) - (p2 + p3 * torch.log(xm)) * torch.log(xm)
+    return torch.exp(log_rate)
+
+
+def make_dijet_nll(bin_edges: np.ndarray, counts: np.ndarray) -> Callable:
+    """The per-bin Poisson NLL of `counts` in the bins `bin_edges`, as a
+    function of params (..., 4) -> (...), computed in log space with no
+    clamp on μ: a clamp would make a zero-gradient plateau at extreme
+    params, where |g| < Θ would falsely converge; in log space those params
+    overflow to inf and the lane fails instead."""
+    edges = np.asarray(bin_edges, np.float64)
+    host = {
+        "centers": torch.tensor(0.5 * (edges[:-1] + edges[1:]), dtype=torch.float32),
+        "widths": torch.tensor(edges[1:] - edges[:-1], dtype=torch.float32),
+        "counts": torch.tensor(np.asarray(counts), dtype=torch.float32),
+    }
+    host["log_widths"] = torch.log(host["widths"])
+    n_bins = host["centers"].shape[0]
+    on_device: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+
+    def nll(params: torch.Tensor) -> torch.Tensor:
+        const = on_device.get(params.device)
+        if const is None:
+            const = on_device[params.device] = {k: v.to(params.device)
+                                                for k, v in host.items()}
+        logp0, p1, p2, p3 = (params[..., i, None] for i in range(4))
+        xm = const["centers"] / SQRT_S
+        log_mu = (logp0 + p1 * torch.log1p(-xm) - (p2 + p3 * torch.log(xm)) * torch.log(xm)
+                  + const["log_widths"])
+        return torch.sum(torch.exp(log_mu) - const["counts"] * log_mu, dim=-1) / n_bins
+
+    return nll
+
+
+def simulate_dijet_counts(true_params, bin_edges: np.ndarray,
+                          seed: int = 0) -> np.ndarray:
+    """Poisson counts (float64) in the bins `bin_edges` at `true_params`:
+    μ = dijet_rate at the bin centres (float32, on the host) × the bin
+    widths, drawn by numpy's default_rng(seed).poisson as in the
+    reference."""
+    rng = np.random.default_rng(seed)
+    edges = np.asarray(bin_edges, np.float64)
+    centers = 0.5 * (edges[:-1] + edges[1:])
+    widths = edges[1:] - edges[:-1]
+    rate = dijet_rate(torch.tensor(np.asarray(true_params), dtype=torch.float32),
+                      torch.tensor(centers, dtype=torch.float32))
+    return rng.poisson(rate.numpy() * widths).astype(np.float64)
 
 
 OBJECTIVES = {

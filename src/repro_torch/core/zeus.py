@@ -54,6 +54,8 @@ class ZeusOptions:
     repack_every: Optional[int] = None
     ladder_len: Optional[int] = None
     schedule: Optional[str] = None
+    schedule_every: Optional[int] = None
+    schedule_plans: Optional[tuple] = None  # replayed plans (schedule="replay")
     auto_cost_model: Optional[bool] = None
     retry_budget: Optional[int] = None
     checkpoint_every: Optional[int] = None
@@ -121,6 +123,8 @@ def _lbfgs_from_bfgs(b: BFGSOptions) -> LBFGSOptions:
         ls_iters=b.ls_iters, linesearch=b.linesearch, lane_chunk=b.lane_chunk,
         sweep_mode=b.sweep_mode, compact_every=b.compact_every,
         repack_every=b.repack_every, ladder_len=b.ladder_len, schedule=b.schedule,
+        schedule_every=b.schedule_every, schedule_plans=b.schedule_plans,
+        auto_ladders=b.auto_ladders, auto_active_frac=b.auto_active_frac,
         auto_cost_model=b.auto_cost_model, retry_budget=b.retry_budget,
         checkpoint_every=b.checkpoint_every, checkpoint_dir=b.checkpoint_dir,
         fault_plan=b.fault_plan)
@@ -139,7 +143,7 @@ def phase2_setup(opts: ZeusOptions):
         solver_opts = None  # third-party registrations use their defaults
     strategy, eopts = factory(solver_opts, lane_chunk=opts.lane_chunk)
     for field in ("sweep_mode", "compact_every", "repack_every", "ladder_len",
-                  "schedule", "auto_cost_model", "retry_budget",
+                  "schedule", "schedule_every", "schedule_plans", "auto_cost_model", "retry_budget",
                   "checkpoint_every", "checkpoint_dir", "fault_plan"):
         value = getattr(opts, field)
         if value is not None:

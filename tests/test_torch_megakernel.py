@@ -58,7 +58,6 @@ BOX = {"sphere": 5.0, "rastrigin": 5.12, "rosenbrock": 2.0, "ackley": 32.768}
 # names of the reference's repro.core.__all__ that the port has not yet, by
 # ROADMAP item
 NOT_PORTED = {"HostedSolve": "A13", "open_multistart": "A13",
-              "auto_plan_lattice": "A8", "schedule_trace_plans": "A8",
               "distributed_zeus": "A14"}
 
 

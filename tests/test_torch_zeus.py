@@ -285,16 +285,10 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card(entry):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(sweep_mode="per_lane", retry_budget=1), "A11"),
-    (dict(sweep_mode="megakernel", compact_every=1), "A8"),
-    (dict(sweep_mode="megakernel", schedule="auto"), "A8"),
-    (dict(phase1="meanfield", schedule="replay"), "A8"),
-    (dict(compact_every=1), "A8"),
-    (dict(repack_every=1), "A8"),
     (dict(sweep_mode="megakernel", retry_budget=1), "A11"),
-    (dict(schedule="auto"), "A8"),
     (dict(retry_budget=1), "A11"),
     (dict(checkpoint_every=2), "A11"),
-    (dict(auto_cost_model=True), "A12"),
+    (dict(schedule="auto", auto_cost_model=True), "A12"),
     (dict(solver="lbfgs", sweep_mode="per_lane", checkpoint_dir="ckpt"), "A11"),
     (dict(dtype="float64"), "float32"),
 ])
@@ -316,11 +310,19 @@ def test_unported_options_raise(kw, item):
     dict(sweep_mode="megakernel"),
     dict(ladder_len=4),
     dict(solver="lbfgs", ladder_len=4),
+    dict(compact_every=1),
+    dict(sweep_mode="megakernel", compact_every=1),
+    dict(repack_every=1, lane_chunk=4),
+    dict(schedule="auto"),
+    dict(sweep_mode="megakernel", schedule="auto"),
+    dict(phase1="meanfield", meanfield=MeanFieldPSOOptions(n_particles=8, iter_pso=1),
+         schedule="replay", schedule_plans=(5,) * 25),
 ], ids=["per_lane", "reference", "pallas", "wolfe", "lbfgs", "lbfgs-per_lane",
-        "meanfield", "megakernel", "ladder_len", "lbfgs-ladder_len"])
+        "meanfield", "megakernel", "ladder_len", "lbfgs-ladder_len", "compact",
+        "megakernel-compact", "repack", "auto", "megakernel-auto", "meanfield-replay"])
 def test_options_ported_from_the_reference_run(kw):
-    """Options earlier slices refused (ROADMAP A7, A10, A9 and the adaptive
-    ladder of A8) now solve."""
+    """Options earlier slices refused (ROADMAP A7, A10, A9 and A8) now
+    solve."""
     obj = get_objective("sphere")
     opts = ZeusOptions(pso=PSOOptions(n_particles=8, iter_pso=1), **kw)
     res = zeus(obj.fn, 2, obj.lower, obj.upper, opts, device="cpu")
@@ -330,6 +332,8 @@ def test_options_ported_from_the_reference_run(kw):
 @pytest.mark.parametrize("kw,match", [
     (dict(bfgs=BFGSOptions(linesearch="wolfe")), "'armijo' only"),
     (dict(sweep_mode="per_lane", compact_every=1), "requires sweep_mode='batched'"),
+    (dict(repack_every=1), "needs lane_chunk"),
+    (dict(schedule="replay"), "needs schedule_plans"),
     (dict(bfgs=BFGSOptions(hessian_impl="cuda")), "unknown hessian impl"),
 ])
 def test_invalid_option_combinations_raise(kw, match):
