@@ -131,6 +131,43 @@ Phases (any failure exits non-zero):
      2048 converged lanes: its host loop is O(lanes × clusters)); and
      (4c) profile each solve and one lm-prefill call once more, device
      activity only (device-busy share, top kernels);
+  4e. fault-tolerant solves and the cost-model controller, each with every
+     launch counter set to 0 just before and read just after, its launches
+     required exactly as the path fixes them (a resumed solve runs no init
+     and only the sweeps after its snapshot; a heal re-initialises each
+     chunk holding a lane to heal with one B1b and one B3):
+       ckpt-paper / ckpt-megakernel-paper — paper and megakernel-paper with
+                        checkpoint_every=4: equal to phase 4's solve in
+                        every field with its launches; preempted at sweep 6
+                        (Preempted(6), newest snapshot 4); resumed through
+                        solve_phase2(resume_from=) on the phase-1 starts,
+                        equal again;
+       zeus-resume    — the same through zeus(resume=): raw, best_x and
+                        pso_best_f equal to phase 4's paper;
+       retry-paper / retry-megakernel-paper — paper on both batched modes
+                        with FaultPlan.random(seed=0, n_sweeps=8,
+                        n_lanes=2048, n_nan=64, n_kill=16): with
+                        retry_budget=2 fewer lanes end failed than without,
+                        the re-seeds and heal launches those the plan fixes;
+                        then checkpoint_every=2, preempted at 5 and resumed
+                        (the retry stream from the snapshot): equal to the
+                        uninterrupted retry solve;
+       ckpt-overhead  — the reference's overhead cell (ackley, B=1024, D=64,
+                        100 sweeps, no lane stops) with and without
+                        checkpoint_every=25 (2 kept), warm walls in turns and
+                        their ratio beside the design target 1.05 (printed,
+                        not required); the two array-equal;
+       cost-model-scale — auto-megakernel-scale with auto_cost_model=True in
+                        measured mode: plans, fitted c_row and c_launch,
+                        warm wall beside auto-megakernel-scale's; the replay
+                        of its trace equal in every field but telemetry;
+       ckpt-scale     — scale with checkpoint_every=50, checkpoint_keep=1
+                        (1.07 GB snapshots; the temporary directory's disk
+                        must hold two): equal to scale, preempted at 75
+                        (newest snapshot 50) and resumed, equal again; each
+                        snapshot's bytes, device-to-host copy ms and write
+                        s, and the checkpointed wall over scale's warm
+                        wall; the directory is removed at the end;
   4d. peak device memory of run_multistart at the scale shape (3 sweeps),
      unchunked and with lane_chunk 4096 and 1024: chunking must lower it;
   5. time each kernel with CUDA events beside its plain version, its bound
@@ -301,6 +338,23 @@ DIJET_EDGES = (1000.0, 6000.0, 41)
 DIJET_SEED = 7
 # the fields a schedule's solve must share with its static counterpart
 SAME_FIELDS = ("x", "fval", "grad_norm", "status", "n_evals")
+# phase 4e: the phase-4 solves its cells are held against
+FAULT_BASES = ("paper", "megakernel-paper", "scale", "auto-megakernel-scale")
+# checkpoint cadence, snapshots kept and preemption sweep of each cell
+CKPT_PAPER = dict(every=4, keep=3, preempt=6)
+CKPT_SCALE = dict(every=50, keep=1, preempt=75)
+CKPT_RETRY = dict(every=2, keep=3, preempt=5)
+# the reference's checkpoint-overhead cell (DESIGN.md §15,
+# benchmarks/engine_bench.py CKPT_*): ackley, B = 1024, D = 64, 100 sweeps,
+# theta so small that no lane stops, a snapshot every 25 sweeps, 2 kept;
+# its design target, printed beside the measured ratio and not required
+CKPT_OVERHEAD = dict(objective="ackley", lanes=1024, dim=64, sweeps=100, every=25,
+                     keep=2, seed=3 * 1024 + 64, rounds=3)
+CKPT_DESIGN_RATIO = 1.05
+# retry-paper's fault plan (FaultPlan.random's arguments) and retry budget
+RETRY_PLAN = dict(seed=0, n_sweeps=8, n_lanes=2048, n_nan=64, n_kill=16)
+RETRY_BUDGET = 2
+ENERGY_READS = 50  # reads of the energy probe timed beside cost-model-scale
 MEANFIELD_RAGGED_N = 100_003  # no multiple of the kernels' 256-thread blocks
 # B8 against its plain version: |k - p| <= tol + tol·|p|. float32: the JAX
 # test's 2e-4. bf16: 1e-2 for unit-normal inputs — the kernel rounds P to
@@ -1431,9 +1485,9 @@ def dijet_problem():
     return edges, counts, make_dijet_nll(edges, counts), (-5.0, 15.0)
 
 
-def run_solve(cfg, opts=None):
+def run_solve(cfg, opts=None, resume=None):
     """One solve of cfg on the card, from its seed (with `opts` in place of
-    cfg's options when given)."""
+    cfg's options when given; resumed from the checkpoint root `resume`)."""
     import torch
     from repro_torch.core import get_objective, sequential_zeus, zeus
 
@@ -1447,7 +1501,7 @@ def run_solve(cfg, opts=None):
         return sequential_zeus(obj.fn, cfg["seed"], cfg["dim"], obj.lower, obj.upper,
                                cfg["opts"], device="cuda")
     return zeus(obj.fn, cfg["dim"], obj.lower, obj.upper, opts, device="cuda",
-                generator=gen)
+                generator=gen, resume=resume)
 
 
 def check_launches(sname, cfg, res, counts):
@@ -1468,12 +1522,14 @@ def check_launches(sname, cfg, res, counts):
 
 
 def run_solves(solve_cfg):
-    """Phase 4: the main paths, one solve at a time, counters read around it."""
+    """Phase 4: the main paths, one solve at a time, counters read around it.
+    Returns the launch counts, the results the schedule cells and phase 4e
+    compare against, and every solve's warm wall."""
     import torch
     from repro_torch.core import CONVERGED
     from repro_torch.kernels import ops
 
-    launches = {}
+    launches, warms = {}, {}
     statics = {cfg["equals"] for cfg in solve_cfg.values() if "equals" in cfg}
     kept = {}
     for sname, cfg in solve_cfg.items():
@@ -1489,6 +1545,7 @@ def run_solves(solve_cfg):
         run_solve(cfg)
         torch.cuda.synchronize()
         warm = time.perf_counter() - t1
+        warms[sname] = warm
         best_f = float(res.best_f)
         require(math.isfinite(best_f), f"{sname}: best_f is not finite")
         require(tuple(res.best_x.shape) == (cfg["dim"],), f"{sname}: best_x shape")
@@ -1509,10 +1566,10 @@ def run_solves(solve_cfg):
                   f"{json.dumps(launches[sname])}")
             if cfg.get("cluster"):
                 time_clustering(res.raw)
-        if sname in statics:
-            kept[sname] = res.raw
+        if sname in statics or sname in FAULT_BASES:
+            kept[sname] = res
         if "equals" in cfg:
-            check_schedule(sname, cfg, res, kept[cfg["equals"]])
+            check_schedule(sname, cfg, res, kept[cfg["equals"]].raw)
         if cfg.get("dijet"):
             check_dijet(res)
         del res
@@ -1521,7 +1578,7 @@ def run_solves(solve_cfg):
         elif cfg.get("compare") == "per_lane":
             compare_per_lane_sweeps(sname, cfg)
         torch.cuda.empty_cache()
-    return launches
+    return launches, kept, warms
 
 
 def same_solve(a, b, fields=SAME_FIELDS):
@@ -1576,6 +1633,373 @@ def check_schedule(sname, cfg, res, static):
           f"chunk-steps {rep.raw.map_trips}, eval_rows {rep.raw.eval_rows}, "
           f"n_converged {rep.n_converged}, launches {json.dumps(counts)}; equal to "
           f"{sname} in every field, the trace included")
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: fault-tolerant solves and the cost-model controller
+# ---------------------------------------------------------------------------
+def same_result(a, b):
+    """The fields of two BFGSResults that differ, every one but telemetry
+    (the wall clock's)."""
+    import torch
+
+    bad = same_solve(a, b, SAME_FIELDS + ("n_restarts",))
+    bad += [f for f in ("eval_rows", "map_trips", "n_failed") if getattr(a, f) != getattr(b, f)]
+    ta, tb = a.schedule_trace, b.schedule_trace
+    if (ta is None) != (tb is None) or (ta is not None and not torch.equal(ta, tb)):
+        bad.append("schedule_trace")
+    return bad
+
+
+def counted(fn):
+    """fn() on the card with every launch counter set to 0 just before and
+    read just after: (result or the Preempted it raised, wall s, counts)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.faults import Preempted
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+    except Preempted as e:
+        out = e.with_traceback(None)  # its frames would hold the solve's tensors
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, ops.launch_counts()
+
+
+def expected_launches(mode, n_chunks, sweeps, init=True, pso=0, heals=0):
+    """The launches of a batched or megakernel solve over n_chunks chunks
+    with the full ladder: `sweeps` chunk-sweeps each, the init's B1b and B3
+    once a chunk (none on resume), `heals` re-initialisations (one B1b and
+    one B3 each: a heal sweep's groups with a lane to heal), B4 `pso`
+    times; every other kernel never."""
+    inits = n_chunks if init else 0
+    steps = sweeps * n_chunks
+    if mode == "batched":
+        return {"fused_value": steps, "fused_value_grad": inits + steps + heals,
+                "guarded_update_direction": steps, "direction": inits + heals,
+                "pso_step_update": pso}
+    return {"sweep_megakernel_full": steps, "fused_value_grad": inits + heals,
+            "direction": inits + heals, "pso_step_update": pso}
+
+
+def require_launches(label, counts, expected):
+    bad = {k: (n, expected.get(k, 0)) for k, n in counts.items() if n != expected.get(k, 0)}
+    require(not bad, f"{label}: launches (got, expected) {bad}")
+
+
+def heal_plan(plan, iterations, width, budget, start=0):
+    """What the fault plan fixes for a solve of `iterations` sweeps on an
+    objective finite everywhere: a lane hit after sweep k - 1 heals at sweep
+    k while its budget lasts. Returns (re-seeds, re-initialised groups) of
+    the heal sweeps from `start` on; a group is a chunk of `width` lanes."""
+    restarts, seeds, groups = {}, 0, 0
+    for k in range(1, iterations):
+        hit = {lane for s, lane in plan.nan_grads + plan.kill_lanes if s == k - 1}
+        healed = sorted(lane for lane in hit if restarts.get(lane, 0) < budget)
+        for lane in healed:
+            restarts[lane] = restarts.get(lane, 0) + 1
+        if k >= start:
+            seeds += len(healed)
+            groups += len({lane // width for lane in healed})
+    return seeds, groups
+
+
+class SnapshotLog:
+    """Collects the engine's snapshot records (step, bytes, host-copy s,
+    write s) from its logger while in a `with` block (across blocks)."""
+
+    def __init__(self):
+        self.records = []
+
+    def __enter__(self):
+        import logging
+
+        self.logger = logging.getLogger("repro_torch.core.engine")
+        self.handler = logging.Handler(logging.DEBUG)
+        self.handler.emit = lambda record: self.records.append(record.args)
+        self.level = self.logger.level
+        self.logger.setLevel(logging.DEBUG)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def ckpt_cell(label, cfg, base, base_counts, base_warm, tmp, every, keep, preempt,
+              resume_direct=False):
+    """A cell's solve checkpointed (equal to its phase-4 solve, the same
+    launches; its wall beside that solve's warm wall), preempted (Preempted
+    at `preempt`, the newest snapshot the cadence's last before it) and
+    resumed (equal again; no init, the sweeps after the snapshot only).
+    `resume_direct` resumes through solve_phase2 on the phase-1 starts
+    instead of zeus(resume=)."""
+    import os
+    import torch
+    from repro_torch.checkpoint import manager
+    from repro_torch.core import get_objective, run_pso, solve_phase2
+    from repro_torch.launch.faults import FaultPlan, Preempted
+
+    opts = cfg["opts"]
+    mode = opts.sweep_mode
+    lanes = opts.pso.n_particles
+    n_chunks = -(-lanes // opts.lane_chunk) if opts.lane_chunk else 1
+    ck_opts = dataclasses.replace(opts, checkpoint_every=every, checkpoint_keep=keep,
+                                  checkpoint_dir=os.path.join(tmp, label + "-ref"))
+    with SnapshotLog() as snaps:
+        res, wall, counts = counted(lambda: run_solve(cfg, ck_opts))
+    bad = same_result(res.raw, base.raw)
+    require(not bad, f"{label}: checkpointed solve differs from its phase-4 solve in {bad}")
+    require(counts == base_counts, f"{label}: launches {counts}, phase 4's {base_counts}")
+    steps = manager.committed_steps(ck_opts.checkpoint_dir)
+    print(f"solve {label}: checkpoint_every={every}, keep={keep}: wall {wall:.4f} s "
+          f"({wall / base_warm:.3f}x the uncheckpointed solve's warm {base_warm:.4f} s), "
+          f"sweeps {res.raw.iterations}, snapshots kept at {steps}, equal to phase 4's solve "
+          f"in every field, launches {json.dumps(counts)}")
+    for step, nbytes, copy_s, write_s in snaps.records:
+        print(f"  snapshot step {step}: {nbytes} bytes, device-to-host copy "
+              f"{copy_s * 1e3:.2f} ms, write {write_s:.4f} s")
+    del res
+
+    pre_dir = os.path.join(tmp, label)
+    pre_opts = dataclasses.replace(ck_opts, checkpoint_dir=pre_dir,
+                                   fault_plan=FaultPlan(preempt_at_sweep=preempt))
+    out, wall, counts = counted(lambda: run_solve(cfg, pre_opts))
+    require(isinstance(out, Preempted) and out.sweep == preempt,
+            f"{label}: no Preempted({preempt}): {out!r}")
+    latest = manager.latest_step(pre_dir)
+    require(latest == (preempt - 1) // every * every,
+            f"{label}: newest snapshot at {latest} after the preemption at {preempt}")
+    require_launches(f"{label}-preempted", counts, expected_launches(
+        mode, n_chunks, preempt, pso=opts.pso.iter_pso))
+    print(f"solve {label}-preempted: Preempted at sweep {out.sweep}, newest snapshot at "
+          f"{latest}, wall {wall:.4f} s, launches {json.dumps(counts)}")
+
+    res_opts = dataclasses.replace(ck_opts, checkpoint_dir=pre_dir)
+    if resume_direct:
+        obj = get_objective(cfg["objective"])
+        gen = torch.Generator(device="cuda").manual_seed(cfg["seed"])
+        starts = run_pso(obj.fn, cfg["dim"], obj.lower, obj.upper, opts.pso, device="cuda",
+                         generator=gen).x
+        raw, wall, counts = counted(lambda: solve_phase2(
+            obj.fn, starts, res_opts, device="cuda", bounds=(obj.lower, obj.upper),
+            resume_from=pre_dir))
+        pso, entry = 0, "solve_phase2(resume_from=)"
+    else:
+        out, wall, counts = counted(lambda: run_solve(cfg, res_opts, resume=pre_dir))
+        raw, pso, entry = out.raw, opts.pso.iter_pso, "zeus(resume=)"
+        for f in ("best_x", "pso_best_f"):
+            require(torch.equal(getattr(out, f), getattr(base, f)),
+                    f"{label}: resumed {f} differs")
+    bad = same_result(raw, base.raw)
+    require(not bad, f"{label}: resumed solve differs from its phase-4 solve in {bad}")
+    require_launches(f"{label}-resumed", counts, expected_launches(
+        mode, n_chunks, raw.iterations - latest, init=False, pso=pso))
+    print(f"solve {label}-resumed ({entry}) from step {latest}: wall {wall:.4f} s, equal to "
+          f"phase 4's solve in every field{', best_x and pso_best_f too' if not resume_direct else ''}; "
+          f"launches {json.dumps(counts)}")
+    return counts
+
+
+def ckpt_overhead():
+    """The reference's checkpoint-overhead cell: the warm wall of the same
+    solve with and without snapshots, in turns, and their ratio (printed
+    beside the design target, not required); the two array-equal."""
+    import shutil
+    import statistics
+    import tempfile
+    import torch
+    from repro_torch.core import BFGSOptions, batched_bfgs, get_objective
+
+    cell = CKPT_OVERHEAD
+    obj = get_objective(cell["objective"])
+    gen = torch.Generator(device="cuda").manual_seed(cell["seed"])
+    x0 = obj.lower + (obj.upper - obj.lower) * torch.rand(
+        cell["lanes"], cell["dim"], generator=gen, device="cuda")
+    plain = BFGSOptions(iter_bfgs=cell["sweeps"], theta=1e-30)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_overhead_")
+    try:
+        ck = dataclasses.replace(plain, checkpoint_every=cell["every"],
+                                 checkpoint_keep=cell["keep"], checkpoint_dir=tmp)
+        expected = expected_launches("batched", 1, cell["sweeps"])
+        walls, results = {"plain": [], "checkpointed": []}, {}
+        batched_bfgs(obj.fn, x0, plain, device="cuda")  # warm-up
+        order = ["plain", "checkpointed", "checkpointed", "plain"] * cell["rounds"]
+        snaps = SnapshotLog()
+        for name in order[:2 * cell["rounds"]]:
+            with snaps:
+                res, wall, counts = counted(lambda: batched_bfgs(
+                    obj.fn, x0, plain if name == "plain" else ck, device="cuda"))
+            require(res.iterations == cell["sweeps"], f"ckpt-overhead: {res.iterations} sweeps")
+            require_launches(f"ckpt-overhead-{name}", counts, expected)
+            walls[name].append(wall)
+            results[name] = res
+        bad = same_result(results["plain"], results["checkpointed"])
+        require(not bad, f"ckpt-overhead: checkpointed differs from plain in {bad}")
+        p, c = statistics.median(walls["plain"]), statistics.median(walls["checkpointed"])
+        print(f"solve ckpt-overhead ({cell['objective']}, B = {cell['lanes']}, D = "
+              f"{cell['dim']}, {cell['sweeps']} sweeps, checkpoint_every={cell['every']}, "
+              f"keep={cell['keep']}): warm wall plain {[round(w, 4) for w in walls['plain']]} s, "
+              f"checkpointed {[round(w, 4) for w in walls['checkpointed']]} s; medians "
+              f"{p:.4f} / {c:.4f} s, ratio {c / p:.3f} (design target {CKPT_DESIGN_RATIO}); "
+              f"array-equal; launches {json.dumps(counts)}")
+        copies = [r[2] * 1e3 for r in snaps.records]
+        writes = [r[3] * 1e3 for r in snaps.records]
+        print(f"  ckpt-overhead snapshots: {len(snaps.records)} of {snaps.records[0][1]} bytes; "
+              f"device-to-host copy ms {[round(x, 2) for x in copies]}, write ms "
+              f"{[round(x, 2) for x in writes]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
+def retry_cells(solve_cfg, tmp):
+    """retry-paper on both batched modes: the fault plan with and without
+    retries (fewer lanes end failed with them), the heals' launches exactly
+    where the plan fixes them, then preempted and resumed with the retry
+    stream restored from the snapshot, equal to the uninterrupted solve."""
+    import os
+    import torch
+    from repro_torch.checkpoint import manager
+    from repro_torch.launch.faults import FaultPlan, Preempted
+
+    plan = FaultPlan.random(**RETRY_PLAN)
+    launches = {}
+    for cell in ("paper", "megakernel-paper"):
+        cfg = solve_cfg[cell]
+        opts = cfg["opts"]
+        mode, width = opts.sweep_mode, opts.lane_chunk
+        n_chunks = opts.pso.n_particles // width
+        label = f"retry-{cell}"
+        broken, _, _ = counted(lambda: run_solve(cfg, dataclasses.replace(opts, fault_plan=plan)))
+        r_opts = dataclasses.replace(opts, fault_plan=plan, retry_budget=RETRY_BUDGET)
+        res, wall, counts = counted(lambda: run_solve(cfg, r_opts))
+        raw = res.raw
+        seeds, groups = heal_plan(plan, raw.iterations, width, RETRY_BUDGET)
+        require(int(raw.n_restarts.sum()) == seeds,
+                f"{label}: {int(raw.n_restarts.sum())} re-seeds, the plan fixes {seeds}")
+        require_launches(label, counts, expected_launches(
+            mode, n_chunks, raw.iterations, pso=opts.pso.iter_pso, heals=groups))
+        require(raw.n_failed < broken.raw.n_failed,
+                f"{label}: n_failed {raw.n_failed}, without retry {broken.raw.n_failed}")
+        require(res.n_converged > 0 and bool(torch.isfinite(res.best_f)), f"{label}: no result")
+        print(f"solve {label}: FaultPlan.random({RETRY_PLAN}), retry_budget={RETRY_BUDGET}: "
+              f"wall {wall:.4f} s, sweeps {raw.iterations}, n_restarts sum "
+              f"{int(raw.n_restarts.sum())} ({groups} group re-inits), n_failed "
+              f"{raw.n_failed} (without retry {broken.raw.n_failed}), n_converged "
+              f"{res.n_converged} (without retry {broken.n_converged}), eval_rows "
+              f"{raw.eval_rows}, launches {json.dumps(counts)}")
+        launches[label] = counts
+
+        every, preempt = CKPT_RETRY["every"], CKPT_RETRY["preempt"]
+        ck = os.path.join(tmp, label)
+        ck_opts = dataclasses.replace(r_opts, checkpoint_every=every,
+                                      checkpoint_keep=CKPT_RETRY["keep"], checkpoint_dir=ck)
+        out, _, _ = counted(lambda: run_solve(cfg, dataclasses.replace(
+            ck_opts, fault_plan=dataclasses.replace(plan, preempt_at_sweep=preempt))))
+        require(isinstance(out, Preempted) and out.sweep == preempt,
+                f"{label}: no Preempted({preempt}): {out!r}")
+        latest = manager.latest_step(ck)
+        out, wall, counts = counted(lambda: run_solve(cfg, ck_opts, resume=ck))
+        bad = same_result(out.raw, raw)
+        require(not bad, f"{label}: resumed differs from the uninterrupted retry solve in {bad}")
+        _, groups = heal_plan(plan, raw.iterations, width, RETRY_BUDGET, start=latest)
+        require_launches(f"{label}-resumed", counts, expected_launches(
+            mode, n_chunks, raw.iterations - latest, init=False, pso=opts.pso.iter_pso,
+            heals=groups))
+        print(f"solve {label}-resumed: preempted at {preempt}, resumed from step {latest} "
+              f"(checkpoint_every={every}): wall {wall:.4f} s, equal to the uninterrupted "
+              f"retry solve in every field, launches {json.dumps(counts)}")
+    return launches
+
+
+def cost_model_cell(solve_cfg, base_warm):
+    """cost-model-scale: megakernel-scale under schedule="auto" with the
+    cost model in measured mode: its plans, fitted costs and warm wall,
+    and the replay of its trace, equal in every field but telemetry."""
+    from repro_torch.core import schedule_trace_plans
+    from repro_torch.launch.telemetry import telemetry_summary
+
+    from repro_torch.launch.telemetry import probe_energy
+
+    t0 = time.perf_counter()
+    probe = probe_energy()
+    t1 = time.perf_counter()
+    for _ in range(ENERGY_READS):
+        probe.read_j()
+    t2 = time.perf_counter()
+    print(f"energy probe: source {probe.source}, {(t1 - t0) * 1e3:.3f} ms to probe, "
+          f"{(t2 - t1) / ENERGY_READS * 1e3:.3f} ms a read over {ENERGY_READS} reads (the "
+          "engine reads it twice a window)")
+    cfg = solve_cfg["auto-megakernel-scale"]
+    opts = dataclasses.replace(cfg["opts"], auto_cost_model=True)
+    launches = {}
+    for run in ("first", "warm"):
+        res, wall, counts = counted(lambda: run_solve(cfg, opts))
+        check_launches(f"cost-model-scale ({run})", cfg, res, counts)
+        raw = res.raw
+        summary = telemetry_summary(raw.telemetry)
+        print(f"solve cost-model-scale ({run}): wall {wall:.4f} s (auto-megakernel-scale warm "
+              f"{base_warm:.4f} s), sweeps {raw.iterations}, chunk-steps {raw.map_trips}, "
+              f"eval_rows {raw.eval_rows}, n_converged {res.n_converged}, plans by window "
+              f"{list(schedule_trace_plans(raw.schedule_trace))}, fitted c_row "
+              f"{summary['c_row']:.6g} s, c_launch {summary['c_launch']:.6g} s, telemetry "
+              f"{json.dumps(summary)}, launches {json.dumps(counts)}")
+        launches[f"cost-model-scale-{run}"] = counts
+    replay = dataclasses.replace(cfg["opts"], schedule="replay",
+                                 schedule_plans=schedule_trace_plans(raw.schedule_trace))
+    rep, wall, counts = counted(lambda: run_solve(cfg, replay))
+    bad = same_result(rep.raw, raw)
+    require(not bad, f"cost-model-scale: its replay differs in {bad}")
+    require(rep.raw.telemetry is None, "cost-model-scale: the replay carries telemetry")
+    check_launches("cost-model-scale-replay", cfg, rep, counts)
+    print(f"solve cost-model-scale-replay: wall {wall:.4f} s, equal to cost-model-scale in "
+          f"every field but telemetry, launches {json.dumps(counts)}")
+    return launches
+
+
+def run_fault_solves(solve_cfg, launches, kept, warms):
+    """Phase 4e (module docstring). Snapshots go to a fresh temporary
+    directory, removed at the end; its disk must hold two of the scale
+    cell's snapshots."""
+    import shutil
+    import tempfile
+    import torch
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        for label, cell, direct in (("ckpt-paper", "paper", True),
+                                    ("ckpt-megakernel-paper", "megakernel-paper", True),
+                                    ("zeus-resume", "paper", False)):
+            out[label + "-resumed"] = ckpt_cell(
+                label, solve_cfg[cell], kept[cell], launches[cell], warms[cell], tmp,
+                **CKPT_PAPER, resume_direct=direct)
+        out.update(retry_cells(solve_cfg, tmp))
+        out["ckpt-overhead"] = ckpt_overhead()
+        out.update(cost_model_cell(solve_cfg, warms["auto-megakernel-scale"]))
+
+        # the scale cell last: its snapshots hold the 1.07 GB H stack
+        B, D = solve_cfg["scale"]["opts"].pso.n_particles, solve_cfg["scale"]["dim"]
+        need = 2 * B * (D * D + 4 * D + 3) * 4
+        free = shutil.disk_usage(tmp).free
+        print(f"ckpt-scale: {free / 2**30:.2f} GiB free under {tempfile.gettempdir()}, two "
+              f"snapshots need {need / 2**30:.2f} GiB")
+        require(free >= need, f"ckpt-scale: {free} bytes free, two snapshots need {need}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["ckpt-scale-resumed"] = ckpt_cell(
+            "ckpt-scale", solve_cfg["scale"], kept["scale"], launches["scale"],
+            warms["scale"], tmp, **CKPT_SCALE)
+        print(f"  ckpt-scale: the three solves in {time.perf_counter() - t0:.1f} s; "
+              f"scale's warm wall {warms['scale']:.4f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def check_dijet(res):
@@ -2537,8 +2961,11 @@ def main() -> int:
         check_flash(fl_cases)["phi3-mini prefill"], 0.0, True)
 
     print(f"[{time.perf_counter() - t_start:.1f} s] kernels checked")
-    launches = run_solves(solve_cfg)  # phase 4
+    launches, kept, warms = run_solves(solve_cfg)  # phase 4
     print(f"[{time.perf_counter() - t_start:.1f} s] solves done")
+    launches.update(run_fault_solves(solve_cfg, launches, kept, warms))  # phase 4e
+    del kept
+    print(f"[{time.perf_counter() - t_start:.1f} s] fault-tolerance solves done")
     launches.update(run_lm())  # phase 4, the LM serving path (with its 4c profile)
     print(f"[{time.perf_counter() - t_start:.1f} s] LM runs done")
     chunk_memory()  # phase 4d

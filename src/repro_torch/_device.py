@@ -23,5 +23,6 @@ def check_dtype(dtype) -> torch.dtype:
     dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     if dt != torch.float32:
         raise NotImplementedError(
-            f"dtype {dtype!r}: the port supports float32 only")
+            f"dtype {dtype!r}: the port supports float32 only (float64 is "
+            "ROADMAP A19)")
     return dt

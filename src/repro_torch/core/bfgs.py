@@ -65,12 +65,19 @@ class BFGSOptions:
     schedule_plans: Optional[tuple] = None
     auto_ladders: Optional[tuple] = None
     auto_active_frac: float = 0.5
-    # not ported yet; any other than the default raises in the engine
-    auto_cost_model: bool = False  # A12
-    retry_budget: int = 0  # A11
-    checkpoint_every: int = 0  # A11
-    checkpoint_dir: Optional[str] = None  # A11
-    fault_plan: Optional[Any] = None  # A11
+    # the engine's cost model (schedule="auto"), quarantine and retry,
+    # checkpointing and fault injection (core/engine.py EngineOptions)
+    auto_cost_model: bool = False
+    telemetry_costs: Optional[tuple] = None
+    telemetry_ema: float = 0.5
+    retry_budget: int = 0
+    retry_mode: str = "perturb"  # "perturb" | "uniform"
+    retry_sigma: float = 0.1
+    retry_bounds: Optional[tuple] = None
+    checkpoint_every: int = 0
+    checkpoint_dir: Optional[str] = None
+    checkpoint_keep: int = 3
+    fault_plan: Optional[Any] = None  # a launch.faults.FaultPlan
 
 
 # ---------------------------------------------------------------------------
@@ -194,9 +201,15 @@ def _engine_opts(opts, lane_chunk: Optional[int] = None,
         auto_ladders=opts.auto_ladders,
         auto_active_frac=opts.auto_active_frac,
         auto_cost_model=opts.auto_cost_model,
+        telemetry_costs=opts.telemetry_costs,
+        telemetry_ema=opts.telemetry_ema,
         retry_budget=opts.retry_budget,
+        retry_mode=opts.retry_mode,
+        retry_sigma=opts.retry_sigma,
+        retry_bounds=opts.retry_bounds,
         checkpoint_every=opts.checkpoint_every,
         checkpoint_dir=opts.checkpoint_dir,
+        checkpoint_keep=opts.checkpoint_keep,
         fault_plan=opts.fault_plan,
     )
 
@@ -245,10 +258,13 @@ def _lane_step(f, opts: BFGSOptions, state: LaneState) -> LaneState:
 # Batched multistart BFGS (Alg. 10) and serial BFGS (Alg. 4)
 # ---------------------------------------------------------------------------
 def batched_bfgs(f: Callable, x0, opts: BFGSOptions = BFGSOptions(), *,
-                 device="cuda") -> BFGSResult:
-    """Run B independent BFGS solves until required_c of them converge."""
+                 device="cuda", retry_draws=None,
+                 resume_from: Optional[str] = None) -> BFGSResult:
+    """Run B independent BFGS solves until required_c of them converge
+    (retry_draws and resume_from as in engine.run_multistart)."""
     strategy, eopts = make_bfgs_solver(opts)
-    return E.run_multistart(f, x0, strategy, eopts, device=device)
+    return E.run_multistart(f, x0, strategy, eopts, device=device,
+                            retry_draws=retry_draws, resume_from=resume_from)
 
 
 class SerialResult(NamedTuple):

@@ -49,7 +49,9 @@ sweep steps them one after another, replacing each chunk's state as it
 goes: the (B, D, D) stack is persistent, and a sweep's transient memory is
 O(C·D²) on top of it, while the stop counts stay sweep-synchronised across
 chunks. Every evaluator on the path is row-independent, so a chunked solve
-is array-equal to the unchunked one.
+is array-equal to the unchunked one (under retry_budget when C divides B:
+the retry draws cover the flat lane axis, padding included, as the
+reference's do).
 
 The batched modes take the reference's sweep schedules ("Sweep schedules"
 below), each array-equal to the static sweep:
@@ -62,17 +64,35 @@ below), each array-equal to the static sweep:
   schedule="auto" — a controller picks a plan per window of
       schedule_every sweeps from {static, dynamic} × candidate ladder
       lengths (`auto_plan_lattice`), recorded in BFGSResult.schedule_trace;
-      schedule="replay" forces a recorded plan sequence
-      (`schedule_trace_plans`).
+      with auto_cost_model=True it scores the candidates in measured
+      seconds (launch/telemetry.py) from each window's wall on the host
+      clock, returned in BFGSResult.telemetry; schedule="replay" forces a
+      recorded plan sequence (`schedule_trace_plans`).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-retry_budget, checkpoint_every/checkpoint_dir and fault_plan (A11);
-auto_cost_model (A12).
+Fault tolerance (launch/faults.py, checkpoint/manager.py; the solve's state
+is one `EngineCarry`, which `_Sweeper` advances a sweep at a time):
+  retry_budget=k (batched modes) — a lane that fails (NaN/Inf) is
+      re-seeded at the start of the next sweep, up to k times, from a
+      perturbed copy of its last iterate or a uniform draw in retry_bounds;
+      only its rows are re-initialised. The lanes to heal are counted in
+      the sweep's one readback (a heal sweep under a schedule reads the
+      active counts once more, for its plans);
+  fault_plan — deterministic NaN and kill injections keyed on the sweep
+      counter, and a preemption at a sweep boundary (`Preempted`);
+  checkpoint_every=n — the solve's whole carry (`EngineCarry`) is
+      snapshotted through checkpoint/manager.py every n sweeps, on a
+      background thread; `run_multistart(resume_from=root)` restores the
+      newest snapshot, and the resumed solve is array-equal to the
+      uninterrupted one, as a checkpointed solve is to an uncheckpointed
+      one.
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
+import logging
+import threading
+import time
 import warnings
 from typing import Any, Callable, Dict, NamedTuple, Optional, Protocol, Tuple
 
@@ -80,6 +100,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import check_dtype, resolve_device
+from repro_torch.checkpoint import manager as ckpt_manager
 from repro_torch.core.dual import grad_eval_cost
 from repro_torch.core.linesearch import (
     armijo_backtracking,
@@ -94,7 +115,13 @@ from repro_torch.core.objectives import (
     analytic_fused_name,
     as_batched,
 )
+from repro_torch.core.pso import TorchDraws
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.launch import faults, telemetry
+
+# snapshot timings go to this logger at DEBUG level (step, bytes, host-copy
+# and write seconds)
+log = logging.getLogger(__name__)
 
 # status codes, matching the paper's result.status
 DIVERGED = 0  # hit iter_max without |g| < theta (or NaN/Inf escape)
@@ -128,8 +155,11 @@ class BFGSResult(NamedTuple):
     # sweeps ran (schedule="auto"/"replay", else None); one-hot rows for the
     # windows run, zero rows after the stop
     schedule_trace: Optional[torch.Tensor] = None
-    n_restarts: Optional[torch.Tensor] = None  # (B,) int32; zeros (no retry yet)
+    n_restarts: Optional[torch.Tensor] = None  # (B,) int32 re-seeds per lane
     n_failed: Optional[int] = None  # lanes that ended failed
+    # launch.telemetry.TelemetryCarry of the window measurements
+    # (auto_cost_model=True, else None)
+    telemetry: Optional[Any] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,18 +197,32 @@ class EngineOptions:
     # the dynamic plan latches once fewer than this share of the lanes is
     # active
     auto_active_frac: float = 0.5
-    # not ported yet; any other than the default raises (ROADMAP item)
-    auto_cost_model: bool = False  # A12
-    retry_budget: int = 0  # A11
-    checkpoint_every: int = 0  # A11
-    checkpoint_dir: Optional[str] = None  # A11
-    fault_plan: Optional[Any] = None  # A11
+    # schedule="auto" only: score the plan lattice in measured seconds,
+    # (L + E[fb])·active·c_row + E[fb]·c_launch, with c_row and c_launch
+    # fitted by an EMA (weight telemetry_ema) over the windows' walls, or
+    # fixed by telemetry_costs=(c_row, c_launch)
+    auto_cost_model: bool = False
+    telemetry_costs: Optional[Tuple[float, float]] = None
+    telemetry_ema: float = 0.5
+    # quarantine and retry (batched modes): a failed lane is re-seeded up to
+    # retry_budget times, "perturb" (its last iterate, non-finite entries at
+    # the middle of retry_bounds or 0, plus retry_sigma·N(0, I)) or
+    # "uniform" (a draw in retry_bounds, required there)
+    retry_budget: int = 0
+    retry_mode: str = "perturb"
+    retry_sigma: float = 0.1
+    retry_bounds: Optional[Tuple[float, float]] = None
+    # snapshot the carry every checkpoint_every sweeps (0 = off) into
+    # checkpoint_dir, keeping the newest checkpoint_keep (0 = all)
+    checkpoint_every: int = 0
+    checkpoint_dir: Optional[str] = None
+    checkpoint_keep: int = 3
+    # a launch.faults.FaultPlan: NaN and kill injections, and a preemption
+    fault_plan: Optional[Any] = None
 
 
 def check_engine_options(opts: EngineOptions) -> None:
-    """Raise ValueError on what the reference rejects, and
-    NotImplementedError, naming the ROADMAP item, on options this port does
-    not run yet."""
+    """Raise ValueError on what the reference rejects."""
     if opts.sweep_mode not in _BATCHED_MODES + ("per_lane",):
         raise ValueError(
             f"unknown sweep_mode {opts.sweep_mode!r}; expected 'per_lane', "
@@ -244,18 +288,39 @@ def check_engine_options(opts: EngineOptions) -> None:
                 raise ValueError(
                     f"schedule_plans entries must be in [0, {n_plans}) for this "
                     f"plan lattice (got {plans})")
-    if opts.auto_cost_model:
-        if opts.schedule != "auto":
+    if opts.auto_cost_model and opts.schedule != "auto":
+        raise ValueError(
+            "auto_cost_model=True re-scores the schedule='auto' plan lattice "
+            f"and requires schedule='auto' (got {opts.schedule!r})")
+    if opts.telemetry_costs is not None:
+        if not opts.auto_cost_model:
             raise ValueError(
-                "auto_cost_model=True re-scores the schedule='auto' plan lattice "
-                f"and requires schedule='auto' (got {opts.schedule!r})")
-        raise NotImplementedError(
-            "auto_cost_model is not ported yet (ROADMAP A12)")
-    if (opts.retry_budget or opts.checkpoint_every or opts.checkpoint_dir
-            or opts.fault_plan is not None):
-        raise NotImplementedError(
-            "retry_budget, checkpoint_every/checkpoint_dir and fault_plan are "
-            "not ported yet (ROADMAP A11)")
+                "telemetry_costs feeds the cost model fixed (c_row, c_launch) "
+                "constants and requires auto_cost_model=True")
+        if len(opts.telemetry_costs) != 2:
+            raise ValueError(
+                f"telemetry_costs must be (c_row, c_launch) (got "
+                f"{opts.telemetry_costs!r})")
+    if opts.retry_budget < 0:
+        raise ValueError(f"retry_budget must be >= 0 (got {opts.retry_budget})")
+    if opts.retry_budget > 0 and not batched:
+        raise ValueError(
+            "retry_budget > 0 re-seeds lanes through the batched init/eval stack "
+            f"and requires sweep_mode='batched'/'megakernel' (got {opts.sweep_mode!r})")
+    if opts.retry_mode not in ("perturb", "uniform"):
+        raise ValueError(
+            f"unknown retry_mode {opts.retry_mode!r}; expected 'perturb' or "
+            "'uniform'")
+    if opts.retry_budget > 0 and opts.retry_mode == "uniform" and opts.retry_bounds is None:
+        raise ValueError(
+            "retry_mode='uniform' draws fresh points uniformly and needs "
+            "retry_bounds=(lower, upper)")
+    if opts.checkpoint_every < 0:
+        raise ValueError(
+            f"checkpoint_every must be >= 0 (got {opts.checkpoint_every})")
+    if opts.checkpoint_every > 0 and not opts.checkpoint_dir:
+        raise ValueError(
+            "checkpoint_every > 0 needs checkpoint_dir to write snapshots to")
     if opts.ad_mode not in ("forward", "reverse"):
         raise ValueError(f"unknown AD mode: {opts.ad_mode}")
 
@@ -797,223 +862,495 @@ class _Counts(NamedTuple):
     """What the host reads back after a sweep, in one transfer."""
 
     n_conv: int
-    n_act: int
+    n_act: int  # active lanes, and the failed ones a retry heals next
     act: Tuple[int, ...]  # active lanes per group
+    elig: Tuple[int, ...]  # failed lanes with retry budget left, per group
     extra: Tuple[Tuple[int, ...], ...]  # the extra device counts, in order
 
 
-def _stop_counts(groups, extras=()) -> _Counts:
-    """Each group's converged and active counts, and the extra device
-    counts the next sweep plans from, read back in one transfer."""
-    per = torch.stack([torch.stack([torch.sum(g.converged), torch.sum(_active_mask(g))])
-                       for g in groups])
+def _stop_counts(groups, extras=(), eligible=None) -> _Counts:
+    """Each group's converged and active counts (and, given `eligible`, the
+    groups' heal masks, the lanes the next sweep heals), and the extra
+    device counts the next sweep plans from, read back in one transfer."""
+    cols = [[torch.sum(g.converged), torch.sum(_active_mask(g))] for g in groups]
+    if eligible is not None:
+        for col, e in zip(cols, eligible):
+            col.append(torch.sum(e))
+    w, n = len(cols[0]), len(groups)
+    per = torch.stack([torch.stack(col) for col in cols])
     parts = [per.flatten()] + [e.flatten().to(torch.int64) for e in extras]
     vals = torch.cat(parts).tolist() if len(parts) > 1 else parts[0].tolist()
-    n = len(groups)
-    conv, act = vals[0:2 * n:2], tuple(vals[1:2 * n:2])
-    extra, at = [], 2 * n
+    conv, act = vals[0:w * n:w], tuple(vals[1:w * n:w])
+    elig = tuple(vals[2:w * n:w]) if eligible is not None else (0,) * n
+    extra, at = [], w * n
     for e in extras:
         extra.append(tuple(vals[at:at + e.numel()]))
         at += e.numel()
-    return _Counts(n_conv=sum(conv), n_act=sum(act), act=act, extra=tuple(extra))
+    return _Counts(n_conv=sum(conv), n_act=sum(act) + sum(elig), act=act, elig=elig,
+                   extra=tuple(extra))
+
+
+@dataclasses.dataclass
+class EngineCarry:
+    """Every datum a sweep reads, in one object, so that a snapshot of it
+    is the solve (checkpoint/manager.py saves and restores it). Fields a
+    configuration does not use are None; the others are there from sweep
+    0 on, so the configuration fixes the carry's structure, and a snapshot
+    restores only into a solve of the same structure."""
+
+    k: int  # sweeps completed
+    groups: list  # the n lane groups of `width` lanes: the chunks, or all lanes
+    rows: int  # physical objective rows evaluated so far (eval_rows)
+    trips: int  # chunk-steps issued so far (map_trips)
+    n_restarts: torch.Tensor  # (n·width,) int32 re-seeds per flat lane
+    replan: bool  # refresh the gather plans at the next sweep
+    # compaction (compact_every, or the dynamic plan unchunked): each group's
+    # stable partition, active lanes first, and its bucket size
+    perm: Optional[torch.Tensor] = None  # (n, width) int64
+    sizes: Optional[Tuple[int, ...]] = None
+    # repacking (repack_every, or the dynamic plan chunked): the flat
+    # partition, the repacked chunk count m, and each repacked chunk's own
+    # partition and bucket size (width where it is not compacted)
+    gperm: Optional[torch.Tensor] = None  # (n·width,) int64
+    m: Optional[int] = None
+    cperm: Optional[torch.Tensor] = None  # (n, width) int64
+    csizes: Optional[Tuple[int, ...]] = None
+    # the controller (schedule="auto"/"replay"): its state, the window's
+    # accepted-rung histogram (auto) and the plan trace
+    auto: Optional[_AutoState] = None
+    hist: Optional[torch.Tensor] = None  # (ls_iters + 1,) int64
+    trace: Optional[np.ndarray] = None  # (n_windows, n_plans) int32
+    # the retry stream's state (its draws hook's get_state()), taken at each
+    # snapshot and handed back to the hook at resume
+    retry_state: Optional[Any] = None
+    telem: Optional[telemetry.TelemetryCarry] = None  # auto_cost_model
+
+
+_STALE = object()  # a derived plan to recompute from the carry
 
 
 class _Sweeper:
-    """Runs the sweeps of one solve under its schedule. The lanes are
-    `groups`, a list of n row groups of `width` lanes each (the chunks, or
-    one group of all lanes), which `sweep` replaces or rewrites in place;
-    `flat` is their concatenation, made when a repacked sweep first needs
-    it, with the groups then views of it, until a whole-group step replaces
-    them again.
+    """Runs the sweeps of one solve on its carry `c`: the heal of failed
+    lanes, the schedule's plans, the step, the injections and the counters.
+    `flat` is the groups' concatenation, made when a repacked sweep first
+    needs it, with the groups then views of it, until a whole-group step
+    replaces them again; `rows_of` (the rows each repacked chunk steps) is
+    derived from the carry's repack plan.
 
     `step_for(L)` is the sweep step at ladder length L (opts.ladder_len for
-    the static schedules): lanes -> (lanes', rows). `extras(k)` are the
-    device counts to read back with the stop counts before sweep k, and
-    `sweep(k, counts)` plans and runs sweep k, returning (rows, trips)."""
+    the static schedules): lanes -> (lanes', rows, rung); `init_rows(X)`
+    makes fresh lanes at the starts X (a heal); `retry_draws` is the retry
+    stream's draws hook."""
 
-    def __init__(self, opts: EngineOptions, groups, width: int, n_lanes: int,
-                 step_for: Callable[[int], Callable], hist: Optional[torch.Tensor]):
+    def __init__(self, opts: EngineOptions, width: int, n: int, n_lanes: int,
+                 step_for: Callable[[int], Callable], init_rows: Callable,
+                 retry_draws, device):
         self.opts = opts
-        self.groups = groups
         self.width = width
-        self.n = len(groups)
+        self.n = n
         self.step_for = step_for
-        self.hist = hist
+        self.init_rows = init_rows
+        self.retry_draws = retry_draws
+        self.c: Optional[EngineCarry] = None
         self.flat = None
-        self.chunked = self.n > 1
+        self.rows_of = _STALE
+        self.chunked = n > 1
         self.compacting = opts.compact_every > 0
         self.repacking = opts.repack_every > 0 and self.chunked
-        self.buckets = _compaction_buckets(width)
-        self.cbuckets = _compaction_buckets(self.n)
-        self.plans = None  # per-group (perm, size) of the compacted sweep
-        self.gperm, self.m, self.rows_of = None, self.n, None  # the repack plan
         self.scheduling = opts.schedule != "static"
+        self.retrying = opts.retry_budget > 0
+        self.injecting = opts.fault_plan is not None and opts.fault_plan.has_injections
+        self.buckets = _compaction_buckets(width)
+        self.cbuckets = _compaction_buckets(n)
+        # padding lanes (the tail of the last chunk) are never healed or hit
+        self.pad = (torch.arange(n * width, device=device) >= n_lanes).view(n, width)
         if self.scheduling:
-            every = opts.schedule_every
             self.ladders = _auto_ladders(opts)
             self.eff = tuple(L if L > 0 else opts.ls_iters for L in self.ladders)
-            n_windows = max(1, -(-opts.iter_max // every))
-            self.trace = np.zeros((n_windows, 2 * len(self.ladders)), np.int32)
+            self.n_windows = max(1, -(-opts.iter_max // opts.schedule_every))
             self.act_thresh = opts.auto_active_frac * n_lanes
-            self.state = _AutoState(plan=len(self.ladders) - 1, dyn_on=False,
-                                    prev_lidx=-1)
 
-    # -- plans -------------------------------------------------------------
-    def _masks(self):
-        return torch.cat([_active_mask(g) for g in self.groups])
-
-    def _full_ladder(self, L: int) -> bool:
-        return L <= 0 or L >= self.opts.ls_iters
-
-    def _compaction_plans(self, act):
-        """A (perm, size) plan for each group from its active count."""
-        plans = [_compaction_plan(_active_mask(g), self.buckets, a)
-                 for g, a in zip(self.groups, act)]
-        return [(perm, self.buckets[bidx]) for perm, bidx in plans]
-
-    def _repack(self, n_active: int) -> None:
-        """Refresh the repack plan: the flat stable partition and m, the
-        smallest chunk-count bucket covering the active lanes."""
-        self.gperm, gcidx = _repack_plan(self._masks(), self.width, self.cbuckets,
-                                         n_active)
-        self.m = self.cbuckets[gcidx]
-
-    def _repacked_rows(self, sizes, L: int):
-        """The flat rows each of the first m repacked chunks steps: chunk j is
-        rows gperm[jC:(j+1)C], compacted to its first sizes[j] rows by the
-        stable partition of its own active flags (sizes None: no
-        compaction). None when the plan covers every row once at the full
-        ladder: the static sweep then steps the same lanes, to the same
-        bits and counters, without a gather."""
-        C = self.width
-        if (self.m == self.n and self._full_ladder(L)
-                and (sizes is None or all(s == C for s in sizes))):
-            return None
-        chunks = self.gperm.view(self.n, C)[:self.m]
-        if sizes is None:
-            return list(chunks)
-        cperm = _partition(self._masks()[chunks])
-        return [rows if s == C else rows.index_select(0, cperm[j, :s])
-                for j, (rows, s) in enumerate(zip(chunks, sizes))]
-
-    def _inner_sizes(self, active_per_chunk):
-        return [self.buckets[_bucket_index(self.buckets, a)] for a in active_per_chunk]
-
-    def _sizes_after_repack(self, n_active: int):
-        """Active lanes of each repacked chunk right after a repack refresh:
-        the partition puts them first, so they fill the chunks in order."""
-        C = self.width
-        return self._inner_sizes([min(C, max(0, n_active - j * C))
-                                  for j in range(self.m)])
-
-    # -- executors ---------------------------------------------------------
-    def _static(self, step):
-        rows = 0
-        for i, lanes in enumerate(self.groups):
-            self.groups[i], r = step(lanes)
-            rows += r
-        self.flat = None
-        return rows, self.n
-
-    def _compacted(self, step, plans):
-        rows = 0
-        for i, (perm, size) in enumerate(plans):
-            if size == self.width:
-                # the bucket is the whole group: the same lanes, in place
-                self.groups[i], r = step(self.groups[i])
-                self.flat = None
-            else:
-                idx = perm[:size]
-                sub, r = step(_take(self.groups[i], idx))
-                _put(self.groups[i], idx, sub)
-            rows += r
-        return rows, self.n
-
-    def _repacked(self, step, rows_of):
-        if rows_of is None:
-            return self._static(step)
-        if self.flat is None:
-            self.flat = _tree_map(lambda *parts: torch.cat(parts), *self.groups)
-            C = self.width
-            self.groups[:] = [_tree_map(lambda a: a[i * C:(i + 1) * C], self.flat)
-                              for i in range(self.n)]
-        rows = 0
-        for idx in rows_of:
-            sub, r = step(_take(self.flat, idx))
-            _put(self.flat, idx, sub)
-            rows += r
-        return rows, self.m
-
-    # -- one sweep ---------------------------------------------------------
-    def extras(self, k: int):
-        """Device counts the host needs before sweep k plans, read back with
-        the stop counts after sweep k - 1."""
-        opts = self.opts
+    def carry0(self, groups, rows: int) -> EngineCarry:
+        """The carry of sweep 0 over `groups` (on the meta device, the
+        structure a snapshot restores into), with every field this
+        configuration uses."""
+        opts, n, C = self.opts, self.n, self.width
+        dev = groups[0].x.device
+        c = EngineCarry(k=0, groups=list(groups), rows=rows, trips=0,
+                        n_restarts=torch.zeros((n * C,), dtype=torch.int32, device=dev),
+                        replan=False)
+        ident = torch.arange(C, device=dev).expand(n, C).contiguous()
+        if self.scheduling and not self.chunked or self.compacting and not self.repacking:
+            c.perm, c.sizes = ident, (C,) * n
+        if self.scheduling and self.chunked or self.repacking:
+            c.gperm, c.m = torch.arange(n * C, device=dev), n
+            c.cperm, c.csizes = ident.clone(), (C,) * n
         if self.scheduling:
-            if self.hist is not None and k > 0 and k % opts.schedule_every == 0:
-                return (self.hist,)
+            c.auto = _AutoState(plan=len(self.ladders) - 1, dyn_on=False, prev_lidx=-1)
+            c.trace = np.zeros((self.n_windows, 2 * len(self.ladders)), np.int32)
+        if opts.schedule == "auto":
+            c.hist = torch.zeros((opts.ls_iters + 1,), dtype=torch.int64, device=dev)
+        if opts.auto_cost_model:
+            c.telem = telemetry.telemetry_init(self.n_windows, opts.telemetry_costs)
+        return c
+
+    def load(self, c: EngineCarry) -> None:
+        self.c = c
+        self.flat = None
+        self.rows_of = _STALE
+
+    # -- counts ------------------------------------------------------------
+    def _masks(self):
+        return torch.cat([_active_mask(g) for g in self.c.groups])
+
+    def _eligible(self, i: int) -> torch.Tensor:
+        """Group i's lanes the next sweep heals: failed, not padding, with
+        retry budget left."""
+        restarts = self.c.n_restarts.view(self.n, self.width)[i]
+        return (self.c.groups[i].failed & ~self.pad[i]
+                & (restarts < self.opts.retry_budget))
+
+    def extras(self):
+        """Device counts the host needs before sweep k = c.k plans, read back
+        with the stop counts after sweep k - 1."""
+        opts, c = self.opts, self.c
+        k = c.k
+        if self.scheduling:
+            if c.hist is not None and k > 0 and k % opts.schedule_every == 0:
+                return (c.hist,)
             return ()
         if (self.repacking and self.compacting and k > 0 and k % opts.compact_every == 0
                 and k % opts.repack_every != 0):
             # a compaction refresh inside the standing repack plan needs the
             # active count of each repacked chunk
-            act = self._masks()[self.gperm].view(self.n, self.width)[:self.m]
+            act = self._masks()[c.gperm].view(self.n, self.width)[:c.m]
             return (torch.sum(act, dim=1),)
         return ()
 
-    def sweep(self, k: int, counts: _Counts):
-        opts = self.opts
+    def counts(self) -> _Counts:
+        """The stop counts and the next sweep's plan inputs: one readback."""
+        elig = [self._eligible(i) for i in range(self.n)] if self.retrying else None
+        return _stop_counts(self.c.groups, self.extras(), elig)
+
+    def _recount(self, counts: _Counts) -> _Counts:
+        """Each group's active count after a heal: a healed lane can start
+        converged or failed, so the plans read them again."""
+        act = torch.stack([torch.sum(_active_mask(g)) for g in self.c.groups])
+        return counts._replace(act=tuple(act.tolist()))
+
+    # -- plans -------------------------------------------------------------
+    def _full_ladder(self, L: int) -> bool:
+        return L <= 0 or L >= self.opts.ls_iters
+
+    def _compaction_refresh(self, act) -> None:
+        """Each group's (partition, bucket) from its active count."""
+        plans = [_compaction_plan(_active_mask(g), self.buckets, a)
+                 for g, a in zip(self.c.groups, act)]
+        self.c.perm = torch.stack([perm for perm, _ in plans])
+        self.c.sizes = tuple(self.buckets[bidx] for _, bidx in plans)
+
+    def _inner_sizes(self, active_per_chunk):
+        return [self.buckets[_bucket_index(self.buckets, a)] for a in active_per_chunk]
+
+    def _repack_refresh(self, n_active: int) -> None:
+        """The repack plan: the flat stable partition and m, the smallest
+        chunk-count bucket covering the active lanes; its chunks are stepped
+        whole until an inner refresh compacts them."""
+        c = self.c
+        c.gperm, gcidx = _repack_plan(self._masks(), self.width, self.cbuckets, n_active)
+        c.m = self.cbuckets[gcidx]
+        c.csizes = (self.width,) * self.n
+        self.rows_of = _STALE
+
+    def _inner_refresh(self, active_per_chunk) -> None:
+        """Compaction inside the standing repack plan: each repacked chunk's
+        stable partition of its own active flags, and its bucket."""
+        c = self.c
+        c.cperm = _partition(self._masks()[c.gperm].view(self.n, self.width))
+        sizes = self._inner_sizes(active_per_chunk)
+        c.csizes = tuple(sizes) + (self.width,) * (self.n - len(sizes))
+        self.rows_of = _STALE
+
+    def _actives_after_repack(self, n_active: int):
+        """Active lanes of each repacked chunk right after a repack refresh:
+        the partition puts them first, so they fill the chunks in order."""
+        C = self.width
+        return [min(C, max(0, n_active - j * C)) for j in range(self.c.m)]
+
+    def _repacked_rows(self, L: int):
+        """The flat rows each of the first m repacked chunks steps: chunk j
+        is rows gperm[jC:(j+1)C], compacted to its first csizes[j] rows by
+        its own partition. None when the plan covers every row once at the
+        full ladder: the static sweep then steps the same lanes, to the same
+        bits and counters, without a gather."""
+        c, C = self.c, self.width
+        sizes = c.csizes[:c.m]
+        if c.m == self.n and self._full_ladder(L) and all(s == C for s in sizes):
+            return None
+        chunks = c.gperm.view(self.n, C)[:c.m]
+        return [rows if s == C else rows.index_select(0, c.cperm[j, :s])
+                for j, (rows, s) in enumerate(zip(chunks, sizes))]
+
+    # -- executors ---------------------------------------------------------
+    def _step(self, step, lanes):
+        new, rows, rung = step(lanes)
+        if self.c.hist is not None:
+            # the window's accepted-rung histogram over the active lanes
+            # (bin ls_iters = exhausted), read by the controller
+            self.c.hist.scatter_add_(0, rung.long(), _active_mask(lanes).long())
+        return new, rows
+
+    def _static(self, step):
+        groups, rows = self.c.groups, 0
+        for i, lanes in enumerate(groups):
+            groups[i], r = self._step(step, lanes)
+            rows += r
+        self.flat = None
+        return rows, self.n
+
+    def _compacted(self, step):
+        c, rows = self.c, 0
+        for i, size in enumerate(c.sizes):
+            if size == self.width:
+                # the bucket is the whole group: the same lanes, in place
+                c.groups[i], r = self._step(step, c.groups[i])
+                self.flat = None
+            else:
+                idx = c.perm[i, :size]
+                sub, r = self._step(step, _take(c.groups[i], idx))
+                _put(c.groups[i], idx, sub)
+            rows += r
+        return rows, self.n
+
+    def _repacked(self, step, L: int):
+        if self.rows_of is _STALE:
+            self.rows_of = self._repacked_rows(L)
+        if self.rows_of is None:
+            return self._static(step)
+        groups = self.c.groups
+        if self.flat is None:
+            self.flat = _tree_map(lambda *parts: torch.cat(parts), *groups)
+            C = self.width
+            groups[:] = [_tree_map(lambda a: a[i * C:(i + 1) * C], self.flat)
+                         for i in range(self.n)]
+        rows = 0
+        for idx in self.rows_of:
+            sub, r = self._step(step, _take(self.flat, idx))
+            _put(self.flat, idx, sub)
+            rows += r
+        return rows, self.c.m
+
+    # -- faults ------------------------------------------------------------
+    def _heal(self, elig) -> None:
+        """Re-seed the failed lanes with budget left (`elig`, their count per
+        group) and re-initialise those rows alone: a fresh start, identity
+        direction state and flags, n_evals carried on across the lane's
+        lives. One draw covers the whole flat lane axis, whichever lanes
+        heal."""
+        opts, c, C = self.opts, self.c, self.width
+        masks = [self._eligible(i) for i in range(self.n)]
+        x = torch.cat([g.x for g in c.groups])
+        if opts.retry_mode == "uniform":
+            lo, hi = opts.retry_bounds
+            starts = faults.reseed_lost_lanes(self.retry_draws, x, torch.cat(masks), lo, hi)
+        else:
+            noise = self.retry_draws.normal(tuple(x.shape)).to(x.device, x.dtype)
+            # a non-finite iterate restarts from the box's middle, else 0
+            mid = (0.5 * (opts.retry_bounds[0] + opts.retry_bounds[1])
+                   if opts.retry_bounds is not None else 0.0)
+        restarts = c.n_restarts.view(self.n, C)
+        for i, e in enumerate(elig):
+            if not e:
+                continue
+            group = c.groups[i]
+            idx = _partition(masks[i])[:e]
+            flat_idx = idx + i * C
+            if opts.retry_mode == "uniform":
+                X = starts.index_select(0, flat_idx)
+            else:
+                xi = x.index_select(0, flat_idx)
+                X = (torch.where(torch.isfinite(xi), xi, mid)
+                     + opts.retry_sigma * noise.index_select(0, flat_idx))
+            fresh = self.init_rows(X)
+            fresh = fresh._replace(n_evals=group.n_evals.index_select(0, idx) + fresh.n_evals)
+            _put(group, idx, fresh)
+            restarts[i].index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+        # the port evaluates the healed rows alone (the reference: every lane)
+        c.rows += sum(elig)
+
+    def _inject(self, k: int) -> None:
+        """The fault plan's events at sweep k, after the sweep: NaN into a
+        lane's gradient, marking it failed; a kill freezes the lane as
+        failed with its state intact. Padding lanes are never hit."""
+        plan = self.opts.fault_plan
+        if not any(faults.injection_lanes(plan, k)):
+            return
+        nan_m, kill_m = faults.injection_masks(plan, k, self.n * self.width,
+                                               self.pad.device)
+        nan_m = nan_m.view(self.n, self.width) & ~self.pad
+        kill_m = kill_m.view(self.n, self.width) & ~self.pad
+        for i, g in enumerate(self.c.groups):
+            g.g.masked_fill_(nan_m[i][:, None], float("nan"))
+            g.failed.logical_or_(nan_m[i] | kill_m[i])
+
+    # -- one sweep ---------------------------------------------------------
+    def sweep(self, counts: _Counts) -> None:
+        """Sweep k = c.k: heal, plan, step and inject, then advance k and the
+        row and chunk-step counters."""
+        c = self.c
+        k = c.k
+        force, c.replan = c.replan, False
+        n_before = sum(counts.act)  # active lanes before any heal
+        if any(counts.elig):
+            self._heal(counts.elig)
+            # a re-admission breaks the rule that the active set only
+            # shrinks, on which the standing gather plans rely
+            force = True
+            if self.compacting or self.repacking or self.scheduling:
+                counts = self._recount(counts)
         if self.scheduling:
-            return self._scheduled(k, counts)
+            rows, trips = self._scheduled(k, counts, force, n_before)
+        else:
+            rows, trips = self._planned(k, counts, force)
+        c.rows += rows
+        c.trips += trips
+        if self.injecting:
+            self._inject(k)
+        c.k = k + 1
+
+    def _planned(self, k: int, counts: _Counts, force: bool):
+        """A sweep of the static schedules (compact_every, repack_every)."""
+        opts = self.opts
         L = opts.ladder_len
         step = self.step_for(L)
+        n_active = sum(counts.act)
         if self.repacking:
-            renew_g = k % opts.repack_every == 0
+            renew_g = force or k % opts.repack_every == 0
             if renew_g:
-                self._repack(counts.n_act)
+                self._repack_refresh(n_active)
             if self.compacting and (renew_g or k % opts.compact_every == 0):
-                sizes = (self._sizes_after_repack(counts.n_act) if renew_g
-                         else self._inner_sizes(counts.extra[0]))
-                self.rows_of = self._repacked_rows(sizes, L)
-            elif renew_g:
-                self.rows_of = self._repacked_rows(None, L)
-            return self._repacked(step, self.rows_of)
+                self._inner_refresh(self._actives_after_repack(n_active) if renew_g
+                                    else counts.extra[0])
+            return self._repacked(step, L)
         if self.compacting:
-            if k % opts.compact_every == 0:
-                self.plans = self._compaction_plans(counts.act)
-            return self._compacted(step, self.plans)
+            if force or k % opts.compact_every == 0:
+                self._compaction_refresh(counts.act)
+            return self._compacted(step)
         return self._static(step)
 
-    def _scheduled(self, k: int, counts: _Counts):
-        opts = self.opts
+    def _scheduled(self, k: int, counts: _Counts, force: bool, n_before: int):
+        """A sweep of schedule="auto"/"replay": a window boundary decides the
+        plan (the p90 controller, the cost model, or the replayed plan) and
+        counts it in the trace; a dynamic plan refreshes its gather plans
+        there, and mid-window after a heal."""
+        opts, c = self.opts, self.c
         n_ladders = len(self.ladders)
-        if k % opts.schedule_every == 0:
-            # a window boundary: decide the plan, count it in the trace, and
-            # refresh the gather plans when it is dynamic
+        n_active = sum(counts.act)
+        boundary = k % opts.schedule_every == 0
+        if boundary:
             w = k // opts.schedule_every
             if opts.schedule == "replay":
-                self.state = self.state._replace(plan=int(opts.schedule_plans[w]))
+                c.auto = c.auto._replace(plan=int(opts.schedule_plans[w]))
             else:
                 hist = counts.extra[0] if counts.extra else (0,) * (opts.ls_iters + 1)
-                self.state = _auto_controller(self.state, counts.n_act, hist, self.eff,
-                                              self.act_thresh)
-                self.hist.zero_()
-            self.trace[w, self.state.plan] += 1
-            if self.state.plan >= n_ladders:
-                L = self.ladders[self.state.plan % n_ladders]
-                if self.chunked:
-                    self._repack(counts.n_act)
-                    self.rows_of = self._repacked_rows(
-                        self._sizes_after_repack(counts.n_act), L)
+                if opts.auto_cost_model:
+                    # the reference reads the active count before the
+                    # sweep's heal here, the p90 controller after it
+                    plan, prev_lidx, dyn_on = telemetry.cost_model_decision(
+                        hist, n_before, self.eff, c.auto.plan, c.auto.prev_lidx,
+                        c.auto.dyn_on, act_thresh=self.act_thresh,
+                        c_row=float(c.telem.c_row), c_launch=float(c.telem.c_launch))
+                    c.auto = _AutoState(plan=plan, dyn_on=dyn_on, prev_lidx=prev_lidx)
                 else:
-                    self.plans = self._compaction_plans(counts.act)
-        plan = self.state.plan
-        step = self.step_for(self.ladders[plan % n_ladders])
-        if plan < n_ladders:
+                    c.auto = _auto_controller(c.auto, n_active, hist, self.eff,
+                                              self.act_thresh)
+                c.hist.zero_()
+            c.trace[w, c.auto.plan] += 1
+        plan = c.auto.plan
+        L = self.ladders[plan % n_ladders]
+        dynamic = plan >= n_ladders
+        if dynamic and (boundary or force):
+            if self.chunked:
+                self._repack_refresh(n_active)
+                self._inner_refresh(self._actives_after_repack(n_active))
+            else:
+                self._compaction_refresh(counts.act)
+        step = self.step_for(L)
+        if not dynamic:
             return self._static(step)
         if self.chunked:
-            return self._repacked(step, self.rows_of)
-        return self._compacted(step, self.plans)
+            return self._repacked(step, L)
+        return self._compacted(step)
+
+
+def _lanes_like(strategy_init: Callable, C: int, D: int, batched: bool):
+    """A lane group's structure, shapes and dtypes on the meta device (no
+    memory, no objective evaluation): what a snapshot restores into."""
+    X = torch.empty((C, D), dtype=torch.float32, device="meta")
+    vec = torch.empty((C,), dtype=torch.float32, device="meta")
+    flag = torch.empty((C,), dtype=torch.bool, device="meta")
+    cnt = torch.empty((C,), dtype=torch.int32, device="meta")
+    state = strategy_init(X)
+    if batched:
+        return BatchLanes(x=X, f=vec, g=X, p=X, converged=flag, failed=flag,
+                          n_evals=cnt, direction_state=state)
+    return Lane(x=X, f=vec, g=X, converged=flag, failed=flag, n_evals=cnt,
+                direction_state=state)
+
+
+def _host_copy(x):
+    """A leaf of the carry as a host copy of its own (a snapshot is written
+    while the next sweeps change the carry in place)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True).numpy()
+    if isinstance(x, np.ndarray):
+        return x.copy()
+    return x
+
+
+class _SnapshotWriter:
+    """Writes snapshots of a carry on one background thread, after the
+    copy to the host. At most one write is in flight: the writer is joined
+    before the next save, before a Preempted raise and before the solve
+    returns, so the newest committed step is known at every boundary a
+    caller can observe. A write's error is raised at that join."""
+
+    def __init__(self, opts: EngineOptions, retry_draws):
+        self.opts = opts
+        self.retry_draws = retry_draws
+        self.pending = None  # (thread, errors) of the write in flight
+
+    def join(self) -> None:
+        if self.pending is not None:
+            thread, err = self.pending
+            self.pending = None
+            thread.join()
+            if err:
+                raise err[0]
+
+    def save(self, c: EngineCarry) -> None:
+        self.join()
+        if self.opts.retry_budget > 0:
+            c.retry_state = self.retry_draws.get_state()
+        t0 = time.perf_counter()
+        host = ckpt_manager.tree_map(_host_copy, c)
+        copy_s = time.perf_counter() - t0
+        nbytes = sum(np.asarray(a).nbytes for a in ckpt_manager.tree_flatten(host)[0])
+        opts, err = self.opts, []
+
+        def write():
+            try:
+                t1 = time.perf_counter()
+                ckpt_manager.save(opts.checkpoint_dir, host.k, host,
+                                  keep=opts.checkpoint_keep)
+                log.debug("snapshot step %d: %d bytes, host copy %.6f s, write %.6f s",
+                          host.k, nbytes, copy_s, time.perf_counter() - t1)
+            except Exception as e:  # raised at the next join
+                err.append(e)
+
+        thread = threading.Thread(target=write, daemon=True)
+        thread.start()
+        self.pending = (thread, err)
 
 
 def run_multistart(
@@ -1023,16 +1360,23 @@ def run_multistart(
     opts: EngineOptions = EngineOptions(),
     *,
     device="cuda",
+    retry_draws=None,
+    resume_from: Optional[str] = None,
 ) -> BFGSResult:
     """Run B independent quasi-Newton solves until required_c converge.
 
-    f:        objective (a named one routes through the fused kernels on
-              the batched sweep).
-    x0:       (B, D) float32 starts, a tensor or array; moved to `device`.
-    strategy: a per-lane DirectionStrategy (core/bfgs.DenseBFGS,
-              core/lbfgs.LBFGS) or, for the batched modes only, a
-              batch-level one (core/bfgs.BatchedDenseBFGS).
-    device:   "cuda" (default) or "cpu"; no silent CPU fallback.
+    f:           objective (a named one routes through the fused kernels on
+                 the batched sweep).
+    x0:          (B, D) float32 starts, a tensor or array; moved to `device`.
+    strategy:    a per-lane DirectionStrategy (core/bfgs.DenseBFGS,
+                 core/lbfgs.LBFGS) or, for the batched modes only, a
+                 batch-level one (core/bfgs.BatchedDenseBFGS).
+    device:      "cuda" (default) or "cpu"; no silent CPU fallback.
+    retry_draws: the retry stream (retry_budget > 0), a draws hook
+                 (core/pso.py); None is TorchDraws(device, seed=0). Under
+                 checkpointing it needs get_state()/set_state().
+    resume_from: a checkpoint root: restore its newest committed snapshot
+                 of this solve and run on from there.
 
     On the batched modes, `compact_every`, `repack_every` and `schedule`
     choose the sweep schedule (see "Sweep schedules" above); every schedule
@@ -1044,13 +1388,25 @@ def run_multistart(
     x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev).contiguous()
     B, D = x0.shape
     required_c = opts.required_c if opts.required_c is not None else B
+    retrying = opts.retry_budget > 0
+    plan = opts.fault_plan
+    injecting = plan is not None and plan.has_injections
+    preempt_at = None if plan is None else plan.preempt_at_sweep
+    if retry_draws is None:
+        retry_draws = TorchDraws(dev, seed=0)
+    if (retrying and (opts.checkpoint_every or resume_from is not None)
+            and not (hasattr(retry_draws, "get_state")
+                     and hasattr(retry_draws, "set_state"))):
+        raise ValueError(
+            "checkpoint_every/resume_from with retry_budget > 0 snapshot the "
+            "retry stream: its draws hook needs get_state() and set_state()")
 
     C = opts.lane_chunk if opts.lane_chunk is not None and 0 < opts.lane_chunk < B else B
     n_chunks = -(-B // C)
     pad = n_chunks * C - B
-    hist = None
+    batched = opts.sweep_mode in _BATCHED_MODES
 
-    if opts.sweep_mode in _BATCHED_MODES:
+    if batched:
         bobj = as_batched(f, ad_mode=opts.ad_mode)
         bstrategy = as_batched_strategy(strategy)
         step_impl = batch_lanes_step
@@ -1062,26 +1418,16 @@ def run_multistart(
                 warnings.warn(
                     f"sweep_mode='megakernel': {reason}; running the batched "
                     "sweep instead (the same results)", RuntimeWarning, stacklevel=2)
-        if opts.schedule == "auto":
-            # the window's accepted-rung histogram over the active lanes
-            # (bin ls_iters = exhausted), read by the controller
-            hist = torch.zeros((opts.ls_iters + 1,), dtype=torch.int64, device=dev)
 
         def init_chunk(X):
             return batch_lanes_init(bobj, bstrategy, X, opts.theta)
 
         def step_for(L):
             sopts = opts if L == opts.ladder_len else dataclasses.replace(opts, ladder_len=L)
+            return lambda lanes: step_impl(bobj, bstrategy, sopts, lanes)
 
-            def step(lanes):
-                new, rows, rung = step_impl(bobj, bstrategy, sopts, lanes)
-                if hist is not None:
-                    hist.scatter_add_(0, rung.long(), _active_mask(lanes).long())
-                return new, rows
-
-            return step
-
-        eval_rows = n_chunks * C  # init: one value+grad row per lane
+        state_init = bstrategy.init_state_batch
+        rows0 = n_chunks * C  # init: one value+grad row per lane
     else:
         if hasattr(strategy, "update_and_direction_batch"):
             raise ValueError(
@@ -1094,63 +1440,113 @@ def run_multistart(
                              opts.ad_mode)
 
         def step_for(L):
-            # rows are not instrumented on the per-lane path (as in the
-            # reference, eval_rows stays 0)
+            # rows and rungs are not instrumented on the per-lane path (as in
+            # the reference, eval_rows stays 0)
             return lambda lanes: (lane_step(obj.value_batch, obj.value_and_grad_batch,
-                                            strategy, opts, lanes), 0)
+                                            strategy, opts, lanes), 0, None)
 
-        eval_rows = 0
+        state_init = strategy.init_state
+        rows0 = 0
 
-    X = torch.cat([x0, x0[:1].expand(pad, D)]) if pad else x0
-    chunks = [init_chunk(X[i * C:(i + 1) * C]) for i in range(n_chunks)]
-    if pad:
-        # padding lanes (the tail of the last chunk) are frozen from birth:
-        # never active, never counted
-        last = chunks[-1]
-        is_pad = torch.arange(C, device=dev) >= C - pad
-        chunks[-1] = last._replace(converged=last.converged & ~is_pad,
-                                   failed=last.failed | is_pad)
-    if opts.compact_every or opts.repack_every or opts.schedule != "static":
-        # the schedules write rows back in place: no leaf may share storage
-        # with another or with the caller's starts
-        chunks = [_owned(ls, {x0.untyped_storage().data_ptr()}) for ls in chunks]
-    sweeper = _Sweeper(opts, chunks, C, B, step_for, hist)
+    sweeper = _Sweeper(opts, C, n_chunks, B, step_for, init_chunk, retry_draws, dev)
+    if resume_from is None:
+        X = torch.cat([x0, x0[:1].expand(pad, D)]) if pad else x0
+        chunks = [init_chunk(X[i * C:(i + 1) * C]) for i in range(n_chunks)]
+        if pad:
+            # padding lanes (the tail of the last chunk) are frozen from
+            # birth: never active, never counted, never retried
+            last = chunks[-1]
+            chunks[-1] = last._replace(converged=last.converged & ~sweeper.pad[-1],
+                                       failed=last.failed | sweeper.pad[-1])
+        if (opts.compact_every or opts.repack_every or opts.schedule != "static"
+                or retrying or injecting):
+            # these write rows in place: no leaf may share storage with
+            # another or with the caller's starts
+            chunks = [_owned(ls, {x0.untyped_storage().data_ptr()}) for ls in chunks]
+        sweeper.load(sweeper.carry0(chunks, rows0))
+    else:
+        like = sweeper.carry0([_lanes_like(state_init, C, D, batched)] * n_chunks, rows0)
+        if retrying:
+            like.retry_state = retry_draws.get_state()
+        carry = ckpt_manager.restore(resume_from, like, device=dev)
+        if retrying:
+            retry_draws.set_state(carry.retry_state)
+        sweeper.load(carry)
+    c = sweeper.c
 
-    k = map_trips = 0
-    counts = _stop_counts(chunks)
-    while k < opts.iter_max and counts.n_conv < required_c and counts.n_act > 0:
-        rows, trips = sweeper.sweep(k, counts)
-        eval_rows += rows
-        map_trips += trips
-        k += 1
-        counts = _stop_counts(chunks, sweeper.extras(k))
+    every_ck = opts.checkpoint_every
+    writer = _SnapshotWriter(opts, retry_draws) if every_ck else None
+    every = opts.schedule_every
+    probe = telemetry.probe_energy() if opts.auto_cost_model else None
+    window = None  # (k, rows, trips, energy, host clock) where the window's segment began
+
+    def running(counts):
+        return c.k < opts.iter_max and counts.n_conv < required_c and counts.n_act > 0
+
+    counts = sweeper.counts()
+    try:
+        while running(counts):
+            if preempt_at is not None and c.k >= preempt_at:
+                # a death at a sweep boundary: nothing past the last snapshot
+                # is saved, so a resume replays the lost sweeps
+                if writer is not None:
+                    writer.join()
+                raise faults.Preempted(c.k, opts.checkpoint_dir)
+            if probe is not None and window is None:
+                window = (c.k, c.rows, c.trips, probe.read_j(), time.perf_counter())
+            sweeper.sweep(counts)
+            counts = sweeper.counts()  # the readback synchronises with the device
+            k, go_on = c.k, running(counts)
+            if window is not None and (
+                    k % every == 0 or not go_on or (every_ck and k % every_ck == 0)
+                    or (preempt_at is not None and k >= preempt_at)):
+                # a segment of the window ends: at its boundary, at a
+                # snapshot, at a preemption or at the stop
+                k0, rows0_w, trips0_w, e0, t0 = window
+                wall = time.perf_counter() - t0
+                e1 = probe.read_j()
+                c.telem = telemetry.record_window(
+                    c.telem, k0 // every, wall, c.rows - rows0_w, c.trips - trips0_w,
+                    energy_j=e1 - e0 if e0 is not None and e1 is not None else None,
+                    ema=opts.telemetry_ema, fixed=opts.telemetry_costs is not None,
+                    refit=k % every == 0 or not go_on)
+                window = None
+            if every_ck and (k % every_ck == 0 or not go_on):
+                writer.save(c)
+    except BaseException:
+        if writer is not None and writer.pending is not None:
+            writer.pending[0].join()  # let the write in flight finish
+        raise
+    if writer is not None:
+        writer.join()
 
     # join the per-lane fields the result reports; the direction state is
     # dropped, never copied into one stack
     def joined(field):
-        parts = [getattr(ls, field) for ls in chunks]
+        parts = [getattr(ls, field) for ls in c.groups]
         return (torch.cat(parts) if n_chunks > 1 else parts[0])[:B]
 
     converged, failed = joined("converged"), joined("failed")
     status = torch.where(
         converged,
         CONVERGED,
-        torch.where(failed | (k >= opts.iter_max), DIVERGED, STOPPED),
+        torch.where(failed | (c.k >= opts.iter_max), DIVERGED, STOPPED),
     ).to(torch.int32)
     return BFGSResult(
         x=joined("x"),
         fval=joined("f"),
         grad_norm=torch.linalg.vector_norm(joined("g"), dim=-1),
         status=status,
-        iterations=k,
+        iterations=c.k,
         n_converged=int(torch.sum(converged)),
         n_evals=joined("n_evals"),
-        eval_rows=eval_rows,
-        map_trips=map_trips,
-        schedule_trace=(torch.as_tensor(sweeper.trace, device=dev)
-                        if sweeper.scheduling else None),
-        n_restarts=torch.zeros((B,), dtype=torch.int32, device=dev),
+        eval_rows=c.rows,
+        map_trips=c.trips,
+        schedule_trace=(torch.as_tensor(c.trace, device=dev)
+                        if c.trace is not None else None),
+        n_restarts=c.n_restarts[:B],
         n_failed=int(torch.sum(failed)),
+        telemetry=c.telem,
     )
 
 

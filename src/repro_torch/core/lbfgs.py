@@ -54,12 +54,19 @@ class LBFGSOptions:
     schedule_plans: Optional[tuple] = None
     auto_ladders: Optional[tuple] = None
     auto_active_frac: float = 0.5
-    # not ported yet; any other than the default raises in the engine
-    auto_cost_model: bool = False  # A12
-    retry_budget: int = 0  # A11
-    checkpoint_every: int = 0  # A11
-    checkpoint_dir: Optional[str] = None  # A11
-    fault_plan: Optional[Any] = None  # A11
+    # the engine's cost model (schedule="auto"), quarantine and retry,
+    # checkpointing and fault injection (core/engine.py EngineOptions)
+    auto_cost_model: bool = False
+    telemetry_costs: Optional[tuple] = None
+    telemetry_ema: float = 0.5
+    retry_budget: int = 0
+    retry_mode: str = "perturb"  # "perturb" | "uniform"
+    retry_sigma: float = 0.1
+    retry_bounds: Optional[tuple] = None
+    checkpoint_every: int = 0
+    checkpoint_dir: Optional[str] = None
+    checkpoint_keep: int = 3
+    fault_plan: Optional[Any] = None  # a launch.faults.FaultPlan
 
 
 class LBFGSMemory(NamedTuple):
@@ -146,7 +153,10 @@ def make_lbfgs_solver(opts: Optional[LBFGSOptions] = None,
 
 
 def batched_lbfgs(f: Callable, x0, opts: LBFGSOptions = LBFGSOptions(), *,
-                  device="cuda") -> BFGSResult:
-    """B independent L-BFGS solves through the engine."""
+                  device="cuda", retry_draws=None,
+                  resume_from: Optional[str] = None) -> BFGSResult:
+    """B independent L-BFGS solves through the engine (retry_draws and
+    resume_from as in engine.run_multistart)."""
     strategy, eopts = make_lbfgs_solver(opts)
-    return E.run_multistart(f, x0, strategy, eopts, device=device)
+    return E.run_multistart(f, x0, strategy, eopts, device=device,
+                            retry_draws=retry_draws, resume_from=resume_from)

@@ -12,7 +12,10 @@ Randomness goes through a `draws` hook, `draws(shape, low, high) -> tensor`
 uniform in [low, high), called in a fixed order: x₀ and v₀ in init_swarm,
 then r1 and r2 in every step; the mean-field swarm (core/meanfield.py) also
 takes standard-normal draws from `draws.normal(shape)`. The default,
-`TorchDraws`, uses a torch.Generator on the device. `jax.random` streams
+`TorchDraws`, uses a torch.Generator on the device. A hook that also has
+`get_state()`/`set_state(state)` can be snapshotted with a solve: the
+engine's retry stream (core/engine.py, retry_budget) needs them under
+checkpointing. `jax.random` streams
 cannot be reproduced in torch, so parity tests pass a hook that replays the
 JAX draws.
 
@@ -86,6 +89,14 @@ class TorchDraws:
     def normal(self, shape) -> torch.Tensor:
         return torch.randn(tuple(shape), generator=self.generator,
                            device=self.device, dtype=torch.float32)
+
+    def get_state(self) -> torch.Tensor:
+        """The generator's state (a CPU uint8 tensor): what a solve's
+        snapshot keeps of its retry stream."""
+        return self.generator.get_state()
+
+    def set_state(self, state: torch.Tensor) -> None:
+        self.generator.set_state(state.cpu())
 
 
 def _global_best(x, fvals, gx, gf):

@@ -11,7 +11,11 @@ start on the host, until required_c have converged.
 
 Randomness comes from a `draws` hook (core/pso.py) instead of a JAX key:
 by default a torch.Generator on the device; `sequential_zeus` takes the
-integer its reference folds the key into. Not ported yet: `resume` (A11).
+integer its reference folds the key into. Phase 2's retry stream (the
+engine's quarantine re-seeds) is a second generator on the device, seeded
+from phase 1's and `_RETRY_FOLD`, so that retries never shift phase 1's
+draws. `zeus(resume=root)` replays phase 1 from the same generator or
+draws and restores phase 2 from its newest snapshot under `root`.
 """
 from __future__ import annotations
 
@@ -56,11 +60,24 @@ class ZeusOptions:
     schedule: Optional[str] = None
     schedule_every: Optional[int] = None
     schedule_plans: Optional[tuple] = None  # replayed plans (schedule="replay")
+    # the engine's cost model, quarantine and retry, checkpointing and fault
+    # injection (core/engine.py EngineOptions); retry_bounds default to the
+    # solve's own box
     auto_cost_model: Optional[bool] = None
+    telemetry_costs: Optional[tuple] = None
+    telemetry_ema: Optional[float] = None
     retry_budget: Optional[int] = None
+    retry_mode: Optional[str] = None  # "perturb" | "uniform"
+    retry_sigma: Optional[float] = None
     checkpoint_every: Optional[int] = None
     checkpoint_dir: Optional[str] = None
-    fault_plan: Optional[Any] = None
+    checkpoint_keep: Optional[int] = None
+    fault_plan: Optional[Any] = None  # a launch.faults.FaultPlan
+
+
+# the retry stream's seed is derived from phase 1's (the reference folds this
+# tag into its key), so that existing seeds keep their swarm and starts
+_RETRY_FOLD = 0x7E05
 
 
 class ZeusResult(NamedTuple):
@@ -70,7 +87,7 @@ class ZeusResult(NamedTuple):
     n_converged: int
     pso_best_f: torch.Tensor  # global best after phase 1 (inf if PSO skipped)
     n_failed: Optional[int] = None  # lanes failed at solve end
-    n_restarts: Optional[torch.Tensor] = None  # (B,) re-seeds (zeros: no retry)
+    n_restarts: Optional[torch.Tensor] = None  # (B,) quarantine re-seeds
 
 
 def uniform_starts(draws: Draws, n: int, dim: int, lower: float, upper: float,
@@ -125,8 +142,11 @@ def _lbfgs_from_bfgs(b: BFGSOptions) -> LBFGSOptions:
         repack_every=b.repack_every, ladder_len=b.ladder_len, schedule=b.schedule,
         schedule_every=b.schedule_every, schedule_plans=b.schedule_plans,
         auto_ladders=b.auto_ladders, auto_active_frac=b.auto_active_frac,
-        auto_cost_model=b.auto_cost_model, retry_budget=b.retry_budget,
-        checkpoint_every=b.checkpoint_every, checkpoint_dir=b.checkpoint_dir,
+        auto_cost_model=b.auto_cost_model, telemetry_costs=b.telemetry_costs,
+        telemetry_ema=b.telemetry_ema, retry_budget=b.retry_budget,
+        retry_mode=b.retry_mode, retry_sigma=b.retry_sigma,
+        retry_bounds=b.retry_bounds, checkpoint_every=b.checkpoint_every,
+        checkpoint_dir=b.checkpoint_dir, checkpoint_keep=b.checkpoint_keep,
         fault_plan=b.fault_plan)
 
 
@@ -143,18 +163,29 @@ def phase2_setup(opts: ZeusOptions):
         solver_opts = None  # third-party registrations use their defaults
     strategy, eopts = factory(solver_opts, lane_chunk=opts.lane_chunk)
     for field in ("sweep_mode", "compact_every", "repack_every", "ladder_len",
-                  "schedule", "schedule_every", "schedule_plans", "auto_cost_model", "retry_budget",
-                  "checkpoint_every", "checkpoint_dir", "fault_plan"):
+                  "schedule", "schedule_every", "schedule_plans", "auto_cost_model",
+                  "telemetry_costs", "telemetry_ema", "retry_budget", "retry_mode",
+                  "retry_sigma", "checkpoint_every", "checkpoint_dir",
+                  "checkpoint_keep", "fault_plan"):
         value = getattr(opts, field)
         if value is not None:
             eopts = dataclasses.replace(eopts, **{field: value})
     return strategy, eopts
 
 
-def solve_phase2(f, x0, opts: ZeusOptions, device="cuda") -> BFGSResult:
-    """Phase 2 through the engine: registry lookup -> run_multistart."""
+def solve_phase2(f, x0, opts: ZeusOptions, device="cuda", retry_draws=None,
+                 bounds=None, resume_from: Optional[str] = None) -> BFGSResult:
+    """Phase 2 through the engine: registry lookup -> run_multistart.
+
+    `bounds=(lower, upper)` backstops the engine's retry_bounds (the
+    re-seed box) when the solver options leave them unset, so that
+    retry_mode="uniform" works as it is."""
     strategy, eopts = phase2_setup(opts)
-    return run_multistart(f, x0, strategy, eopts, device=device)
+    if bounds is not None and eopts.retry_bounds is None:
+        eopts = dataclasses.replace(
+            eopts, retry_bounds=(float(bounds[0]), float(bounds[1])))
+    return run_multistart(f, x0, strategy, eopts, device=device,
+                          retry_draws=retry_draws, resume_from=resume_from)
 
 
 def _select_best(res: BFGSResult):
@@ -178,6 +209,7 @@ def zeus(
     generator: Optional[torch.Generator] = None,
     draws: Optional[Draws] = None,
     resume: Optional[str] = None,
+    retry_draws: Optional[Draws] = None,
 ) -> ZeusResult:
     """Single-host ZEUS (Alg. 7).
 
@@ -187,15 +219,24 @@ def zeus(
     generator: torch.Generator on `device` for the default draws (seed 0
                when None).
     draws:     the random-draw hook (core/pso.py), overriding `generator`.
-    resume:    not ported yet (A11)."""
-    if resume is not None:
-        raise NotImplementedError("resume is not ported yet (ROADMAP A11)")
+    resume:    a checkpoint root: replay phase 1 (pass the same generator
+               seed or draws as the interrupted call) and restore phase 2
+               from its newest committed snapshot; the result is
+               array-equal to the uninterrupted call's.
+    retry_draws: phase 2's retry stream; None is a second generator on
+               `device`, seeded from phase 1's generator (seed 0 without
+               one) and `_RETRY_FOLD`."""
     check_dtype(opts.dtype)
     dev = resolve_device(device)
     if draws is None:
         draws = TorchDraws(dev, generator)
+    if retry_draws is None:
+        base = getattr(draws, "generator", None)
+        seed = base.initial_seed() if base is not None else 0
+        retry_draws = TorchDraws(dev, seed=(seed ^ _RETRY_FOLD) & (2**63 - 1))
     starts, pso_best_f = run_phase1(f, dim, lower, upper, opts, draws, dev)
-    res = solve_phase2(f, starts, opts, device=dev)
+    res = solve_phase2(f, starts, opts, device=dev, retry_draws=retry_draws,
+                       bounds=(lower, upper), resume_from=resume)
     best_x, best_f = _select_best(res)
     _warn_if_all_lanes_failed(res, starts.shape[0])
     return ZeusResult(
@@ -227,12 +268,15 @@ def zeus_jit(f: Callable, dim: int, lower: float, upper: float,
 
 def _warn_if_all_lanes_failed(res: BFGSResult, n_lanes: int):
     """RuntimeWarning when the solve ends with EVERY lane failed: best_x is
-    then the least-bad failed iterate."""
+    then the least-bad failed iterate, and the retry budget (if any) is
+    spent on all of them."""
     if res.n_failed is not None and res.n_failed >= n_lanes:
+        budget = int(torch.max(res.n_restarts)) if res.n_restarts is not None else 0
         warnings.warn(
-            f"all {n_lanes} lanes ended failed (non-finite escape); best_x is "
-            "the least-bad failed iterate — consider a different search box",
-            RuntimeWarning, stacklevel=3)
+            f"all {n_lanes} lanes ended failed (non-finite escape); quarantine "
+            f"retries used per lane: up to {budget}. best_x is the least-bad "
+            "failed iterate — consider retry_budget/retry_mode='uniform' or a "
+            "different search box", RuntimeWarning, stacklevel=3)
 
 
 # ---------------------------------------------------------------------------

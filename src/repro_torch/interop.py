@@ -107,8 +107,8 @@ def result_from_numpy(res, device="cpu") -> BFGSResult:
     out = {}
     for k in BFGSResult._fields:
         v = _field(res, k, None)
-        if v is None:
-            out[k] = None
+        if v is None or k == "telemetry":  # host numpy either way
+            out[k] = v
         elif np.ndim(v) == 0:
             out[k] = int(v)
         else:

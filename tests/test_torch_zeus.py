@@ -283,20 +283,31 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card(entry):
         calls[entry]()
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(sweep_mode="per_lane", retry_budget=1), "A11"),
-    (dict(sweep_mode="megakernel", retry_budget=1), "A11"),
-    (dict(retry_budget=1), "A11"),
-    (dict(checkpoint_every=2), "A11"),
-    (dict(schedule="auto", auto_cost_model=True), "A12"),
-    (dict(solver="lbfgs", sweep_mode="per_lane", checkpoint_dir="ckpt"), "A11"),
-    (dict(dtype="float64"), "float32"),
+@pytest.mark.parametrize("kw,raises", [
+    pytest.param(dict(sweep_mode="per_lane", retry_budget=1), (ValueError, "retry_budget"),
+                 id="kw0-A11"),
+    pytest.param(dict(sweep_mode="megakernel", retry_budget=1), None, id="kw1-A11"),
+    pytest.param(dict(retry_budget=1), None, id="kw2-A11"),
+    pytest.param(dict(checkpoint_every=2), (ValueError, "checkpoint_dir"), id="kw3-A11"),
+    pytest.param(dict(schedule="auto", auto_cost_model=True), None, id="kw4-A12"),
+    pytest.param(dict(solver="lbfgs", sweep_mode="per_lane", checkpoint_dir="ckpt"), None,
+                 id="kw5-A11"),
+    pytest.param(dict(dtype="float64"), (NotImplementedError, "float32"), id="kw6-float32"),
 ])
-def test_unported_options_raise(kw, item):
+def test_unported_options_raise(kw, raises):
+    """The options earlier slices refused as not ported (ROADMAP A11, A12)
+    now solve, or raise ValueError where the reference does (retry off the
+    batched modes, a cadence without a directory); float64 is still not
+    ported."""
     obj = get_objective("sphere")
     opts = ZeusOptions(pso=PSOOptions(n_particles=8, iter_pso=1), **kw)
-    with pytest.raises(NotImplementedError, match=item):
-        zeus(obj.fn, 2, obj.lower, obj.upper, opts, device="cpu")
+    if raises is not None:
+        with pytest.raises(raises[0], match=raises[1]):
+            zeus(obj.fn, 2, obj.lower, obj.upper, opts, device="cpu")
+        return
+    res = zeus(obj.fn, 2, obj.lower, obj.upper, opts, device="cpu")
+    assert res.n_converged == 8 and float(res.best_f) < 1e-6
+    assert int(res.n_restarts.sum()) == 0 and res.n_failed == 0
 
 
 @pytest.mark.parametrize("kw", [
