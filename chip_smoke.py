@@ -168,6 +168,33 @@ Phases (any failure exits non-zero):
                         snapshot's bytes, device-to-host copy ms and write
                         s, and the checkpointed wall over scale's warm
                         wall; the directory is removed at the end;
+  4f. the solve service (serve/service.py over HostedSolve), each drain
+     with every launch counter set to 0 before its first submit (the
+     pool's open and init included) and read after it, its launches
+     required exactly as the path fixes them (one chunk-step a sweep; an
+     admission re-initialises the admitted rows with one B1b and one B3):
+       serve-paper    — the reference bench's serve cell: rastrigin, D=16,
+                        32 slots, 96 one-start requests at sweep 0, budgets
+                        alternating (2, 32), theta=1e-30, ls_iters=20, on
+                        the batched and the megakernel sweep: a warm drain,
+                        then the continuous service and drain_then_refill,
+                        all requests done, every lane's sweeps exactly its
+                        budget, drain / continuous sweeps >= 1.3, request
+                        0 and the first request admitted after sweep 0
+                        array-equal to solo_reference at width 32; sweeps,
+                        walls, solves/s, admit latency in sweeps and ms,
+                        and the continuous drain once more under the
+                        profiler (device-busy share);
+       serve-scale    — ackley, D=128, 16384 slots (a 1.07 GB H stack), 64
+                        requests of 512 starts, budgets alternating (25,
+                        100), theta=1e-4, batched, admit_every=1: all done,
+                        the launches, solo parity at width 16384 for
+                        request 0 and the first request admitted mid-flight;
+                        the per-pump split on the host clock (lane_view,
+                        harvest + admit, segment, the pool's telemetry);
+       serve-cli      — repro_torch.launch.serve.main with
+                        tests/test_system.py's arguments on the card: four
+                        requests drained, each converged with two lanes;
   4d. peak device memory of run_multistart at the scale shape (3 sweeps),
      unchunked and with lane_chunk 4096 and 1024: chunking must lower it;
   5. time each kernel with CUDA events beside its plain version, its bound
@@ -199,7 +226,8 @@ costs and B3 against torch.bmm at the paper shapes, the same way (copy the
 script into another checkout and run the two in turns).
 `python3 chip_smoke.py --fused` runs only B1a's and B1b's checks and times
 of phases 3 and 5, the same way. `python3 chip_smoke.py --tiny` runs only
-the tiny-bucket checks of phases 3 and 3b.
+the tiny-bucket checks of phases 3 and 3b, and `--serve` the service
+cells of phase 4f.
 
 It imports neither JAX nor the JAX package `repro`.
 """
@@ -356,6 +384,21 @@ RETRY_PLAN = dict(seed=0, n_sweeps=8, n_lanes=2048, n_nan=64, n_kill=16)
 RETRY_BUDGET = 2
 ENERGY_READS = 50  # reads of the energy probe timed beside cost-model-scale
 MEANFIELD_RAGGED_N = 100_003  # no multiple of the kernels' 256-thread blocks
+# phase 4f, the solve service. serve-paper: the reference bench's serve cell
+# (benchmarks/engine_bench.py SERVE_*): 96 one-start requests at sweep 0,
+# budgets alternating (2, 32), theta so small that every lane retires at its
+# deadline; the drain-then-refill baseline must take at least SERVE_FLOOR
+# times the continuous service's sweeps (the reference's BENCH_SERVE_FLOOR)
+SERVE_PAPER = dict(objective="rastrigin", dim=16, slots=32, requests=96, n_starts=1,
+                   budgets=(2, 32), theta=1e-30, admit_every=1)
+SERVE_FLOOR = 1.3
+# serve-scale: several fits queued against one pool at the scale cell's
+# width (a 1.07 GB H stack): 64 requests of 512 starts, two pool-widths
+SERVE_SCALE = dict(objective="ackley", dim=128, slots=16384, requests=64, n_starts=512,
+                   budgets=(25, 100), theta=1e-4, admit_every=1)
+# serve-cli: tests/test_system.py's arguments for the service launcher
+SERVE_CLI = ["--problems", "rastrigin:3,ackley:2", "--requests", "4", "--n-starts", "2",
+             "--iter-max", "30", "--slots", "4"]
 # B8 against its plain version: |k - p| <= tol + tol·|p|. float32: the JAX
 # test's 2e-4. bf16: 1e-2 for unit-normal inputs — the kernel rounds P to
 # bf16 before P·V where the plain version keeps it in float32, and both
@@ -2002,6 +2045,253 @@ def run_fault_solves(solve_cfg, launches, kept, warms):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4f: the solve service
+# ---------------------------------------------------------------------------
+class ServeRun:
+    """One drain of a cell's request stream through a fresh SolveService on
+    the card: counters set to 0 before the first submit (the pool's open
+    and its init are the path's too) and read after the drain; the
+    admissions counted by wrapping the pool's HostedSolve.admit (a group
+    takes one B1b and one B3 an admission that writes rows of it); with
+    `split`, the host clock around each part of a pump."""
+
+    def __init__(self, cell, mode, drain_then_refill=False, split=False, profile=False):
+        import numpy as np
+        import torch
+        from repro_torch.core import BFGSOptions, ZeusOptions
+        from repro_torch.kernels import ops
+        from repro_torch.serve.service import ProblemRegistry, SolveRequest, SolveService
+
+        self.cell, self.mode = cell, mode
+        opts = ZeusOptions(bfgs=BFGSOptions(
+            iter_bfgs=max(cell["budgets"]), theta=cell["theta"], ad_mode="reverse",
+            ls_iters=K_LADDER, sweep_mode=mode))
+        self.registry = ProblemRegistry()
+        self.registry.register("serve", cell["objective"], cell["dim"], opts=opts)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        svc = SolveService(self.registry, slots=cell["slots"], max_queue=cell["requests"],
+                           admit_every=cell["admit_every"],
+                           drain_then_refill=drain_then_refill, device="cuda")
+        budgets = cell["budgets"]
+        self.requests = [SolveRequest("serve", seed=i, n_starts=cell["n_starts"],
+                                      iter_max=budgets[i % len(budgets)])
+                         for i in range(cell["requests"])]
+        self.rids = [svc.submit(r) for r in self.requests]
+        pool = svc._pools["serve"]
+        self.admit_groups = 0
+        width = pool.host._sweeper.width
+        real_admit = pool.host.admit
+
+        def admit(carry, mask, X, deadlines):
+            m = np.asarray(mask, bool).reshape(-1, width)
+            self.admit_groups += int(m.any(axis=1).sum())
+            return real_admit(carry, mask, X, deadlines)
+
+        pool.host.admit = admit
+        self.split = None
+        if split:
+            self.split = {"lane_view": 0.0, "harvest+admit": 0.0, "segment": 0.0,
+                          "telemetry": 0.0, "pumps": 0}
+            timed = lambda key, fn: self._timed(key, fn)
+            pool.host.lane_view = timed("lane_view", pool.host.lane_view)
+            svc._harvest = timed("harvest+admit", svc._harvest)
+            svc._admit = timed("harvest+admit", svc._admit)
+            pool.host.segment = timed("segment", pool.host.segment)
+            pool.telem.begin = timed("telemetry", pool.telem.begin)
+            pool.telem.end = timed("telemetry", pool.telem.end)
+        prof = None
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as torch_profile
+
+            prof = torch_profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        self.results = svc.drain()
+        torch.cuda.synchronize()
+        self.wall = time.perf_counter() - t0
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        self.prof = prof
+        self.counts = ops.launch_counts()
+        self.svc, self.pool = svc, pool
+        self.stats = svc.stats()
+        self.sweeps = self.stats["pool_sweeps"]["serve"]
+
+    def _timed(self, key, fn):
+        import torch
+
+        def wrapper(*args, **kwargs):
+            if key == "lane_view":
+                self.split["pumps"] += 1
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if key == "segment":
+                torch.cuda.synchronize()
+            self.split[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def check(self, label):
+        """All requests done, every lane's sweeps exactly its budget where
+        it did not converge (all of them at theta = 1e-30), and the
+        launches the path fixes."""
+        from repro_torch.core import CONVERGED
+
+        require(len(self.results) == len(self.requests),
+                f"{label}: {len(self.results)} of {len(self.requests)} requests done")
+        for rid, req in zip(self.rids, self.requests):
+            res = self.results[rid]
+            require(len(res.lanes) == req.n_starts, f"{label}: request {rid} lanes")
+            for lane in res.lanes:
+                ran = lane.retire_sweep - lane.admit_sweep
+                require(ran == req.iter_max if lane.status != CONVERGED
+                        else ran <= req.iter_max,
+                        f"{label}: request {rid} lane ran {ran} sweeps, budget "
+                        f"{req.iter_max}, status {lane.status}")
+        trips = self.pool.carry.trips
+        require(trips == self.sweeps, f"{label}: {trips} chunk-steps over {self.sweeps} sweeps")
+        require_launches(label, self.counts, expected_launches(
+            self.mode, 1, self.sweeps, heals=self.admit_groups))
+
+    def check_solo(self, label):
+        """Request 0 and the first request admitted after sweep 0 against
+        the request alone in a fresh batch of the pool's width: x, f, |g|,
+        status and n_evals array-equal."""
+        import numpy as np
+        from repro_torch.serve.service import solo_reference
+
+        later = next(e["rid"] for e in self.svc.ledger
+                     if e["event"] == "admit" and e["sweep"] > 0)
+        for rid in (0, later):
+            res = self.results[rid]
+            ref = solo_reference(self.registry.get("serve"), self.requests[rid],
+                                 slots=self.cell["slots"], device="cuda")
+            n = len(res.lanes)
+            got = {"x": np.stack([l.x for l in res.lanes]),
+                   "fval": np.array([l.fval for l in res.lanes], np.float32),
+                   "grad_norm": np.array([l.grad_norm for l in res.lanes], np.float32),
+                   "status": np.array([l.status for l in res.lanes], np.int32),
+                   "n_evals": np.array([l.n_evals for l in res.lanes], np.int32)}
+            bad = [f for f, v in got.items()
+                   if not np.array_equal(v, getattr(ref, f)[:n].cpu().numpy())]
+            admits = sorted({l.admit_sweep for l in res.lanes})
+            require(not bad, f"{label}: request {rid} (admitted at sweeps {admits[:4]}) "
+                    f"differs from its solo run in {bad}")
+            print(f"  {label}: request {rid} ({n} lanes, admitted at sweeps "
+                  f"{admits[:4]}{'...' if len(admits) > 4 else ''}) array-equal to its solo "
+                  f"run at width {self.cell['slots']} on x, fval, grad_norm, status, n_evals")
+
+    def line(self, label):
+        st = self.stats
+        sps = st["solves_per_sec"]
+        return (f"solve {label}: {len(self.results)} requests, sweeps {self.sweeps}, wall "
+                f"{self.wall:.4f} s, solves/s {sps if sps is None else round(sps, 2)}, "
+                f"admit latency p50/p95 {st['admit_latency_sweeps_p50']:.1f} / "
+                f"{st['admit_latency_sweeps_p95']:.1f} sweeps, "
+                f"{st['admit_latency_s_p50'] * 1e3:.2f} / {st['admit_latency_s_p95'] * 1e3:.2f} "
+                f"ms, admissions {self.admit_groups}, eval_rows {self.pool.carry.rows}, "
+                f"launches {json.dumps(self.counts)}")
+
+
+def serve_paper():
+    """serve-paper under both batched modes: a warm drain, then the
+    continuous service and the drain-then-refill baseline, counted and
+    checked; their sweep ratio against SERVE_FLOOR; solo parity; then the
+    continuous drain once more under the profiler (device activity only)."""
+    import torch
+
+    cell, launches = SERVE_PAPER, {}
+    for mode in ("batched", "megakernel"):
+        ServeRun(cell, mode)  # warm-up
+        cont = ServeRun(cell, mode)
+        cont.check(f"serve-paper-{mode}")
+        drain = ServeRun(cell, mode, drain_then_refill=True)
+        drain.check(f"serve-paper-{mode}-drain")
+        ratio = drain.sweeps / cont.sweeps
+        print(cont.line(f"serve-paper-{mode} (continuous)"))
+        print(drain.line(f"serve-paper-{mode} (drain_then_refill)"))
+        print(f"  serve-paper-{mode}: drain/continuous sweeps {drain.sweeps} / {cont.sweeps} "
+              f"= {ratio:.3f} (floor {SERVE_FLOOR}), walls {drain.wall:.4f} / {cont.wall:.4f} "
+              f"s = {drain.wall / cont.wall:.3f}")
+        require(ratio >= SERVE_FLOOR, f"serve-paper-{mode}: sweep ratio {ratio:.3f} under "
+                f"{SERVE_FLOOR}")
+        cont.check_solo(f"serve-paper-{mode}")
+        prof = ServeRun(cell, mode, profile=True)
+        print_profile(f"serve-paper-{mode} (continuous)", prof.prof, prof.wall * 1e6)
+        launches[f"serve-paper-{mode}"] = cont.counts
+        launches[f"serve-paper-{mode}-drain"] = drain.counts
+        del cont, drain, prof
+        torch.cuda.empty_cache()
+    return launches
+
+
+def serve_scale():
+    """serve-scale: 64 requests of 512 starts into a 16 384-slot pool (two
+    pool-widths of lanes), once to warm and once timed with the per-pump
+    split; all done, the launches, and solo parity at width 16 384."""
+    import torch
+
+    cell = SERVE_SCALE
+    first = ServeRun(cell, "batched")
+    first.check("serve-scale (first)")
+    print(first.line("serve-scale (first)"))
+    del first
+    torch.cuda.empty_cache()
+    run = ServeRun(cell, "batched", split=True)
+    run.check("serve-scale")
+    print(run.line("serve-scale"))
+    sp = run.split
+    n_conv = sum(r.n_converged for r in run.results.values())
+    print(f"  serve-scale: {sp['pumps']} pumps; host clock lane_view {sp['lane_view']:.4f} s, "
+          f"harvest+admit {sp['harvest+admit']:.4f} s, segment {sp['segment']:.4f} s, "
+          f"telemetry {sp['telemetry']:.4f} s of {run.wall:.4f} s; {n_conv} of "
+          f"{cell['requests'] * cell['n_starts']} lanes converged")
+    run.check_solo("serve-scale")
+    counts = run.counts
+    del run
+    torch.cuda.empty_cache()
+    return {"serve-scale": counts}
+
+
+def serve_cli():
+    """serve-cli: the launcher's main() with the system test's arguments on
+    the card (its default device): four requests over two problems, every
+    one converged with two lanes, on the batched path's kernels."""
+    import torch
+    from repro_torch.core import CONVERGED
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = serve.main(SERVE_CLI)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    require(len(results) == 4, f"serve-cli: {len(results)} requests drained")
+    require(all(len(r.lanes) == 2 for r in results.values()), "serve-cli: lanes")
+    require(all(r.status == CONVERGED for r in results.values()),
+            f"serve-cli: statuses {[r.status for r in results.values()]}")
+    for k, n in counts.items():
+        if k in ("fused_value", "fused_value_grad", "guarded_update_direction", "direction"):
+            require(n > 0, f"serve-cli: kernel {k} was not launched")
+        else:
+            require(n == 0, f"serve-cli: kernel {k} launched {n} times off its path")
+    print(f"solve serve-cli: wall {wall:.4f} s, launches {json.dumps(counts)}")
+    return {"serve-cli": counts}
+
+
+def run_service_cells():
+    """Phase 4f (module docstring)."""
+    out = serve_paper()
+    out.update(serve_scale())
+    out.update(serve_cli())
+    return out
+
+
 def check_dijet(res):
     """The fit's own criteria (examples/fit_dijet.py): best_f within 1 of
     the NLL at the true parameters, at least 90% of the pulls within ±2σ;
@@ -2907,6 +3197,10 @@ def main() -> int:
     if sys.argv[1:] == ["--fused"]:
         fused_path()
         return 0
+    if sys.argv[1:] == ["--serve"]:
+        _build.build_all()
+        print(json.dumps({"launch_counts": run_service_cells()}))
+        return 0
     if sys.argv[1:] == ["--tiny"]:
         _build.build_all()
         gen = torch.Generator(device="cuda").manual_seed(22)
@@ -2966,6 +3260,8 @@ def main() -> int:
     launches.update(run_fault_solves(solve_cfg, launches, kept, warms))  # phase 4e
     del kept
     print(f"[{time.perf_counter() - t_start:.1f} s] fault-tolerance solves done")
+    launches.update(run_service_cells())  # phase 4f
+    print(f"[{time.perf_counter() - t_start:.1f} s] service cells done")
     launches.update(run_lm())  # phase 4, the LM serving path (with its 4c profile)
     print(f"[{time.perf_counter() - t_start:.1f} s] LM runs done")
     chunk_memory()  # phase 4d

@@ -27,6 +27,7 @@ from repro_torch.core.engine import (
     BFGSResult,
     DirectionStrategy,
     EngineOptions,
+    HostedSolve,
     Lane,
     VmappedStrategy,
     as_batched_strategy,
@@ -36,6 +37,7 @@ from repro_torch.core.engine import (
     get_solver,
     lane_init,
     lane_step,
+    open_multistart,
     register_solver,
     run_multistart,
     schedule_trace_plans,

@@ -85,6 +85,15 @@ is one `EngineCarry`, which `_Sweeper` advances a sweep at a time):
       newest snapshot, and the resumed solve is array-equal to the
       uninterrupted one, as a checkpointed solve is to an uncheckpointed
       one.
+
+Held open (the solve service, serve/service.py): `open_multistart` returns
+a `HostedSolve` over the same carry, sweeps and host loop (`_drive`), which
+the caller advances segment by segment, harvesting lanes between segments
+(`lane_view`) and admitting fresh ones into chosen slots (`admit`, the
+heal's write path: the admitted rows alone). With lane_deadlines=True each
+flat lane carries a sweep deadline; a sweep first freezes the lanes whose
+deadline has come, counted in the readback before it, so the plans see the
+active set after the freeze.
 """
 from __future__ import annotations
 
@@ -219,10 +228,18 @@ class EngineOptions:
     checkpoint_keep: int = 3
     # a launch.faults.FaultPlan: NaN and kill injections, and a preemption
     fault_plan: Optional[Any] = None
+    # per-lane sweep deadlines (the solve service, serve/service.py): the
+    # carry holds a (n·width,) int32 deadline per flat lane, 0 = none, and
+    # a sweep first freezes as failed every active lane whose deadline is
+    # <= its counter, so a lane admitted at sweep k0 with deadline k0 + m
+    # runs exactly m sweeps, as a solo solve with iter_max = m does.
+    # HostedSolve.admit sets them; incompatible with retry_budget > 0
+    lane_deadlines: bool = False
 
 
-def check_engine_options(opts: EngineOptions) -> None:
-    """Raise ValueError on what the reference rejects."""
+def check_engine_options(opts: EngineOptions, hosted: bool = False) -> None:
+    """Raise ValueError on what the reference rejects; `hosted` for a solve
+    held open under host control (open_multistart)."""
     if opts.sweep_mode not in _BATCHED_MODES + ("per_lane",):
         raise ValueError(
             f"unknown sweep_mode {opts.sweep_mode!r}; expected 'per_lane', "
@@ -301,6 +318,17 @@ def check_engine_options(opts: EngineOptions) -> None:
             raise ValueError(
                 f"telemetry_costs must be (c_row, c_launch) (got "
                 f"{opts.telemetry_costs!r})")
+    if opts.auto_cost_model and opts.lane_deadlines:
+        raise ValueError(
+            "auto_cost_model=True drives its own host-segmented loop and is "
+            "incompatible with lane_deadlines=True (the solve service drives "
+            "segments itself; it records pool telemetry instead)")
+    if opts.auto_cost_model and hosted:
+        raise ValueError(
+            "auto_cost_model=True needs the host in the sweep loop (the boundary "
+            "plan decision reads measured window costs) and is unavailable "
+            "through the program/hosted-pool drivers (distributed_zeus, "
+            "open_multistart)")
     if opts.retry_budget < 0:
         raise ValueError(f"retry_budget must be >= 0 (got {opts.retry_budget})")
     if opts.retry_budget > 0 and not batched:
@@ -315,6 +343,11 @@ def check_engine_options(opts: EngineOptions) -> None:
         raise ValueError(
             "retry_mode='uniform' draws fresh points uniformly and needs "
             "retry_bounds=(lower, upper)")
+    if opts.lane_deadlines and opts.retry_budget > 0:
+        raise ValueError(
+            "lane_deadlines=True is incompatible with retry_budget > 0: a "
+            "quarantine retry would resurrect a deadline-expired lane past its "
+            "per-request budget")
     if opts.checkpoint_every < 0:
         raise ValueError(
             f"checkpoint_every must be >= 0 (got {opts.checkpoint_every})")
@@ -866,28 +899,38 @@ class _Counts(NamedTuple):
     act: Tuple[int, ...]  # active lanes per group
     elig: Tuple[int, ...]  # failed lanes with retry budget left, per group
     extra: Tuple[Tuple[int, ...], ...]  # the extra device counts, in order
+    # active lanes per group whose deadline freezes them at the next sweep
+    expiring: Tuple[int, ...] = ()
 
 
-def _stop_counts(groups, extras=(), eligible=None) -> _Counts:
+def _stop_counts(groups, extras=(), eligible=None, expiring=None) -> _Counts:
     """Each group's converged and active counts (and, given `eligible`, the
-    groups' heal masks, the lanes the next sweep heals), and the extra
-    device counts the next sweep plans from, read back in one transfer."""
+    groups' heal masks, the lanes the next sweep heals; given `expiring`,
+    the masks of the lanes whose deadline the next sweep enforces), and the
+    extra device counts the next sweep plans from, read back in one
+    transfer."""
     cols = [[torch.sum(g.converged), torch.sum(_active_mask(g))] for g in groups]
-    if eligible is not None:
-        for col, e in zip(cols, eligible):
-            col.append(torch.sum(e))
+    for masks in (eligible, expiring):
+        if masks is not None:
+            for col, m in zip(cols, masks):
+                col.append(torch.sum(m))
     w, n = len(cols[0]), len(groups)
     per = torch.stack([torch.stack(col) for col in cols])
     parts = [per.flatten()] + [e.flatten().to(torch.int64) for e in extras]
     vals = torch.cat(parts).tolist() if len(parts) > 1 else parts[0].tolist()
     conv, act = vals[0:w * n:w], tuple(vals[1:w * n:w])
-    elig = tuple(vals[2:w * n:w]) if eligible is not None else (0,) * n
+    col = 2
+    elig = exp = (0,) * n
+    if eligible is not None:
+        elig, col = tuple(vals[col:w * n:w]), col + 1
+    if expiring is not None:
+        exp = tuple(vals[col:w * n:w])
     extra, at = [], w * n
     for e in extras:
         extra.append(tuple(vals[at:at + e.numel()]))
         at += e.numel()
     return _Counts(n_conv=sum(conv), n_act=sum(act) + sum(elig), act=act, elig=elig,
-                   extra=tuple(extra))
+                   extra=tuple(extra), expiring=exp)
 
 
 @dataclasses.dataclass
@@ -904,6 +947,8 @@ class EngineCarry:
     trips: int  # chunk-steps issued so far (map_trips)
     n_restarts: torch.Tensor  # (n·width,) int32 re-seeds per flat lane
     replan: bool  # refresh the gather plans at the next sweep
+    # lane_deadlines: each flat lane's sweep deadline, 0 = none
+    deadline: Optional[torch.Tensor] = None  # (n·width,) int32
     # compaction (compact_every, or the dynamic plan unchunked): each group's
     # stable partition, active lanes first, and its bucket size
     perm: Optional[torch.Tensor] = None  # (n, width) int64
@@ -930,8 +975,10 @@ _STALE = object()  # a derived plan to recompute from the carry
 
 
 class _Sweeper:
-    """Runs the sweeps of one solve on its carry `c`: the heal of failed
-    lanes, the schedule's plans, the step, the injections and the counters.
+    """Runs the sweeps of one solve on its carry `c`: the deadline freeze,
+    the heal of failed lanes, the schedule's plans, the step, the injections
+    and the counters; and, between sweeps, the admission of fresh lanes into
+    chosen slots (HostedSolve).
     `flat` is the groups' concatenation, made when a repacked sweep first
     needs it, with the groups then views of it, until a whole-group step
     replaces them again; `rows_of` (the rows each repacked chunk steps) is
@@ -939,8 +986,10 @@ class _Sweeper:
 
     `step_for(L)` is the sweep step at ladder length L (opts.ladder_len for
     the static schedules): lanes -> (lanes', rows, rung); `init_rows(X)`
-    makes fresh lanes at the starts X (a heal); `retry_draws` is the retry
-    stream's draws hook."""
+    makes fresh lanes at the starts X (a heal or an admission);
+    `retry_draws` is the retry stream's draws hook. `counts_now` holds the
+    counts read back after the carry's last sweep, None once the carry
+    changed between sweeps (an admission) or was loaded."""
 
     def __init__(self, opts: EngineOptions, width: int, n: int, n_lanes: int,
                  step_for: Callable[[int], Callable], init_rows: Callable,
@@ -954,16 +1003,20 @@ class _Sweeper:
         self.c: Optional[EngineCarry] = None
         self.flat = None
         self.rows_of = _STALE
+        self.counts_now: Optional[_Counts] = None
         self.chunked = n > 1
         self.compacting = opts.compact_every > 0
         self.repacking = opts.repack_every > 0 and self.chunked
         self.scheduling = opts.schedule != "static"
         self.retrying = opts.retry_budget > 0
         self.injecting = opts.fault_plan is not None and opts.fault_plan.has_injections
+        self.deadlining = opts.lane_deadlines
         self.buckets = _compaction_buckets(width)
         self.cbuckets = _compaction_buckets(n)
-        # padding lanes (the tail of the last chunk) are never healed or hit
-        self.pad = (torch.arange(n * width, device=device) >= n_lanes).view(n, width)
+        # padding lanes (the tail of the last chunk) are never healed, hit or
+        # admitted
+        self.pad_host = (np.arange(n * width) >= n_lanes).reshape(n, width)
+        self.pad = torch.from_numpy(self.pad_host).to(device)
         if self.scheduling:
             self.ladders = _auto_ladders(opts)
             self.eff = tuple(L if L > 0 else opts.ls_iters for L in self.ladders)
@@ -992,16 +1045,33 @@ class _Sweeper:
             c.hist = torch.zeros((opts.ls_iters + 1,), dtype=torch.int64, device=dev)
         if opts.auto_cost_model:
             c.telem = telemetry.telemetry_init(self.n_windows, opts.telemetry_costs)
+        if self.deadlining:
+            c.deadline = torch.zeros((n * C,), dtype=torch.int32, device=dev)
         return c
 
     def load(self, c: EngineCarry) -> None:
         self.c = c
         self.flat = None
         self.rows_of = _STALE
+        self.counts_now = None
 
     # -- counts ------------------------------------------------------------
     def _masks(self):
         return torch.cat([_active_mask(g) for g in self.c.groups])
+
+    def _expiring(self, i: int) -> torch.Tensor:
+        """Group i's active lanes whose deadline the sweep k = c.k enforces
+        (0 < deadline <= k)."""
+        dl = self.c.deadline.view(self.n, self.width)[i]
+        return _active_mask(self.c.groups[i]) & (dl > 0) & (dl <= self.c.k)
+
+    def _live(self):
+        """The flat active mask as sweep c.k plans from it: after its
+        deadline freeze."""
+        if not self.deadlining:
+            return self._masks()
+        return torch.cat([_active_mask(g) & ~self._expiring(i)
+                          for i, g in enumerate(self.c.groups)])
 
     def _eligible(self, i: int) -> torch.Tensor:
         """Group i's lanes the next sweep heals: failed, not padding, with
@@ -1023,14 +1093,15 @@ class _Sweeper:
                 and k % opts.repack_every != 0):
             # a compaction refresh inside the standing repack plan needs the
             # active count of each repacked chunk
-            act = self._masks()[c.gperm].view(self.n, self.width)[:c.m]
+            act = self._live()[c.gperm].view(self.n, self.width)[:c.m]
             return (torch.sum(act, dim=1),)
         return ()
 
     def counts(self) -> _Counts:
         """The stop counts and the next sweep's plan inputs: one readback."""
         elig = [self._eligible(i) for i in range(self.n)] if self.retrying else None
-        return _stop_counts(self.c.groups, self.extras(), elig)
+        exp = [self._expiring(i) for i in range(self.n)] if self.deadlining else None
+        return _stop_counts(self.c.groups, self.extras(), elig, exp)
 
     def _recount(self, counts: _Counts) -> _Counts:
         """Each group's active count after a heal: a healed lane can start
@@ -1140,6 +1211,59 @@ class _Sweeper:
             rows += r
         return rows, self.c.m
 
+    # -- fresh lanes -------------------------------------------------------
+    def _reseed(self, i: int, idx: torch.Tensor, X: torch.Tensor,
+                carry_evals: bool) -> None:
+        """Re-initialise rows `idx` of group i at the starts X alone, in
+        place (the heal's and the admission's one write path): fresh flags
+        and direction state, the eval counter fresh or, with `carry_evals`,
+        carried on across the lane's lives. A group that is a view of the
+        repacked `flat` stack writes through to it."""
+        group = self.c.groups[i]
+        fresh = self.init_rows(X)
+        if carry_evals:
+            fresh = fresh._replace(n_evals=group.n_evals.index_select(0, idx) + fresh.n_evals)
+        _put(group, idx, fresh)
+
+    def admit(self, mask: np.ndarray, X: torch.Tensor, deadlines: torch.Tensor) -> None:
+        """Seed fresh lanes at rows of X (B, D) into the flat slots `mask`
+        (n·width,) holds (padding never), between sweeps: each a new solve,
+        with fresh n_evals and n_restarts and its deadline from `deadlines`
+        (n·width,). The next sweep refreshes its gather plans (an admission
+        breaks the rule that the active set only shrinks) and the counts
+        are read again. eval_rows counts the admitted rows."""
+        c, C = self.c, self.width
+        m = np.asarray(mask, bool).reshape(self.n, C) & ~self.pad_host
+        dev = self.pad.device
+        for i in range(self.n):
+            rows = np.flatnonzero(m[i])
+            if rows.size:
+                idx = torch.from_numpy(rows).to(dev)
+                self._reseed(i, idx, X.index_select(0, idx + i * C), carry_evals=False)
+        flat_idx = np.flatnonzero(m)
+        if flat_idx.size:
+            idx = torch.from_numpy(flat_idx).to(dev)
+            c.n_restarts.index_fill_(0, idx, 0)
+            if c.deadline is not None:
+                c.deadline.index_copy_(0, idx, deadlines.index_select(0, idx))
+            c.rows += int(flat_idx.size)
+            c.replan = True
+            self.counts_now = None
+
+    def vacate(self) -> None:
+        """Freeze every slot (failed, not converged): an empty pool, whose
+        slots admissions light up one by one."""
+        for g in self.c.groups:
+            g.converged.fill_(False)
+            g.failed.fill_(True)
+        self.counts_now = None
+
+    def _expire(self) -> None:
+        """The deadline freeze at the start of sweep c.k: every active lane
+        with 0 < deadline <= k is failed from now on."""
+        for i, g in enumerate(self.c.groups):
+            g.failed.logical_or_(self._expiring(i))
+
     # -- faults ------------------------------------------------------------
     def _heal(self, elig) -> None:
         """Re-seed the failed lanes with budget left (`elig`, their count per
@@ -1162,7 +1286,6 @@ class _Sweeper:
         for i, e in enumerate(elig):
             if not e:
                 continue
-            group = c.groups[i]
             idx = _partition(masks[i])[:e]
             flat_idx = idx + i * C
             if opts.retry_mode == "uniform":
@@ -1171,9 +1294,7 @@ class _Sweeper:
                 xi = x.index_select(0, flat_idx)
                 X = (torch.where(torch.isfinite(xi), xi, mid)
                      + opts.retry_sigma * noise.index_select(0, flat_idx))
-            fresh = self.init_rows(X)
-            fresh = fresh._replace(n_evals=group.n_evals.index_select(0, idx) + fresh.n_evals)
-            _put(group, idx, fresh)
+            self._reseed(i, idx, X, carry_evals=True)
             restarts[i].index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
         # the port evaluates the healed rows alone (the reference: every lane)
         c.rows += sum(elig)
@@ -1195,11 +1316,19 @@ class _Sweeper:
 
     # -- one sweep ---------------------------------------------------------
     def sweep(self, counts: _Counts) -> None:
-        """Sweep k = c.k: heal, plan, step and inject, then advance k and the
-        row and chunk-step counters."""
+        """Sweep k = c.k: freeze the lanes past their deadline, heal, plan,
+        step and inject, then advance k and the row and chunk-step counters.
+        The freeze takes the lanes `counts` found expiring: the plans count
+        the active lanes after it, as the reference plans from the lanes its
+        prologue froze (no plan refresh: the active set only shrinks)."""
         c = self.c
         k = c.k
+        self.counts_now = None
         force, c.replan = c.replan, False
+        if any(counts.expiring):
+            self._expire()
+            counts = counts._replace(
+                act=tuple(a - e for a, e in zip(counts.act, counts.expiring)))
         n_before = sum(counts.act)  # active lanes before any heal
         if any(counts.elig):
             self._heal(counts.elig)
@@ -1353,53 +1482,28 @@ class _SnapshotWriter:
         self.pending = (thread, err)
 
 
-def run_multistart(
-    f: Callable,
-    x0,  # (B, D) starting points (the post-PSO swarm)
-    strategy,
-    opts: EngineOptions = EngineOptions(),
-    *,
-    device="cuda",
-    retry_draws=None,
-    resume_from: Optional[str] = None,
-) -> BFGSResult:
-    """Run B independent quasi-Newton solves until required_c converge.
+class _Opened(NamedTuple):
+    """What run_multistart and open_multistart share, built by `_open`."""
 
-    f:           objective (a named one routes through the fused kernels on
-                 the batched sweep).
-    x0:          (B, D) float32 starts, a tensor or array; moved to `device`.
-    strategy:    a per-lane DirectionStrategy (core/bfgs.DenseBFGS,
-                 core/lbfgs.LBFGS) or, for the batched modes only, a
-                 batch-level one (core/bfgs.BatchedDenseBFGS).
-    device:      "cuda" (default) or "cpu"; no silent CPU fallback.
-    retry_draws: the retry stream (retry_budget > 0), a draws hook
-                 (core/pso.py); None is TorchDraws(device, seed=0). Under
-                 checkpointing it needs get_state()/set_state().
-    resume_from: a checkpoint root: restore its newest committed snapshot
-                 of this solve and run on from there.
+    sweeper: _Sweeper
+    x0: torch.Tensor  # (B, D) the starts on the device
+    start: Callable  # (X, owned) -> the carry of sweep 0 at starts X (B, D)
+    like: Callable  # () -> the carry's structure on the meta device
+    n_chunks: int
+    device: torch.device
 
-    On the batched modes, `compact_every`, `repack_every` and `schedule`
-    choose the sweep schedule (see "Sweep schedules" above); every schedule
-    is array-equal to the static sweep."""
-    check_engine_options(opts)
+
+def _open(f, x0, strategy, opts: EngineOptions, device, retry_draws) -> _Opened:
+    """The starts on the device, the sweep mode's init and step, and a
+    _Sweeper over ceil(B / C) lane groups of C = lane_chunk lanes (the last
+    padded with frozen lanes)."""
     dev = resolve_device(device)
     if isinstance(x0, torch.Tensor):
         check_dtype(x0.dtype)
     x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev).contiguous()
     B, D = x0.shape
-    required_c = opts.required_c if opts.required_c is not None else B
-    retrying = opts.retry_budget > 0
-    plan = opts.fault_plan
-    injecting = plan is not None and plan.has_injections
-    preempt_at = None if plan is None else plan.preempt_at_sweep
     if retry_draws is None:
         retry_draws = TorchDraws(dev, seed=0)
-    if (retrying and (opts.checkpoint_every or resume_from is not None)
-            and not (hasattr(retry_draws, "get_state")
-                     and hasattr(retry_draws, "set_state"))):
-        raise ValueError(
-            "checkpoint_every/resume_from with retry_budget > 0 snapshot the "
-            "retry stream: its draws hook needs get_state() and set_state()")
 
     C = opts.lane_chunk if opts.lane_chunk is not None and 0 < opts.lane_chunk < B else B
     n_chunks = -(-B // C)
@@ -1417,7 +1521,7 @@ def run_multistart(
             else:
                 warnings.warn(
                     f"sweep_mode='megakernel': {reason}; running the batched "
-                    "sweep instead (the same results)", RuntimeWarning, stacklevel=2)
+                    "sweep instead (the same results)", RuntimeWarning, stacklevel=3)
 
         def init_chunk(X):
             return batch_lanes_init(bobj, bstrategy, X, opts.theta)
@@ -1449,41 +1553,47 @@ def run_multistart(
         rows0 = 0
 
     sweeper = _Sweeper(opts, C, n_chunks, B, step_for, init_chunk, retry_draws, dev)
-    if resume_from is None:
-        X = torch.cat([x0, x0[:1].expand(pad, D)]) if pad else x0
-        chunks = [init_chunk(X[i * C:(i + 1) * C]) for i in range(n_chunks)]
+
+    def start(X, owned: bool) -> EngineCarry:
+        Xp = torch.cat([X, X[:1].expand(pad, D)]) if pad else X
+        chunks = [init_chunk(Xp[i * C:(i + 1) * C]) for i in range(n_chunks)]
         if pad:
             # padding lanes (the tail of the last chunk) are frozen from
             # birth: never active, never counted, never retried
             last = chunks[-1]
             chunks[-1] = last._replace(converged=last.converged & ~sweeper.pad[-1],
                                        failed=last.failed | sweeper.pad[-1])
-        if (opts.compact_every or opts.repack_every or opts.schedule != "static"
-                or retrying or injecting):
-            # these write rows in place: no leaf may share storage with
+        if owned:
+            # rows are written in place: no leaf may share storage with
             # another or with the caller's starts
-            chunks = [_owned(ls, {x0.untyped_storage().data_ptr()}) for ls in chunks]
-        sweeper.load(sweeper.carry0(chunks, rows0))
-    else:
-        like = sweeper.carry0([_lanes_like(state_init, C, D, batched)] * n_chunks, rows0)
-        if retrying:
-            like.retry_state = retry_draws.get_state()
-        carry = ckpt_manager.restore(resume_from, like, device=dev)
-        if retrying:
-            retry_draws.set_state(carry.retry_state)
-        sweeper.load(carry)
-    c = sweeper.c
+            chunks = [_owned(ls, {X.untyped_storage().data_ptr()}) for ls in chunks]
+        return sweeper.carry0(chunks, rows0)
 
-    every_ck = opts.checkpoint_every
-    writer = _SnapshotWriter(opts, retry_draws) if every_ck else None
+    def like() -> EngineCarry:
+        return sweeper.carry0([_lanes_like(state_init, C, D, batched)] * n_chunks, rows0)
+
+    return _Opened(sweeper=sweeper, x0=x0, start=start, like=like, n_chunks=n_chunks,
+                   device=dev)
+
+
+def _drive(sweeper: _Sweeper, counts: _Counts, k_end: int, required_c: int,
+           writer: Optional[_SnapshotWriter] = None, probe=None,
+           preempt_at: Optional[int] = None) -> _Counts:
+    """The host loop, one for both drivers: run_multistart runs it to the
+    stop, HostedSolve.segment to a boundary. Sweeps while k < k_end, fewer
+    than required_c lanes converged and any lane active, reading the stop
+    counts back once a sweep; with `writer`, snapshots every
+    checkpoint_every sweeps and at the stop; with `probe`, records the cost
+    model's windows; raises Preempted at `preempt_at`. Returns the counts
+    after the last sweep."""
+    opts, c = sweeper.opts, sweeper.c
+    every_ck = opts.checkpoint_every if writer is not None else 0
     every = opts.schedule_every
-    probe = telemetry.probe_energy() if opts.auto_cost_model else None
     window = None  # (k, rows, trips, energy, host clock) where the window's segment began
 
     def running(counts):
-        return c.k < opts.iter_max and counts.n_conv < required_c and counts.n_act > 0
+        return c.k < k_end and counts.n_conv < required_c and counts.n_act > 0
 
-    counts = sweeper.counts()
     try:
         while running(counts):
             if preempt_at is not None and c.k >= preempt_at:
@@ -1519,12 +1629,21 @@ def run_multistart(
         raise
     if writer is not None:
         writer.join()
+    sweeper.counts_now = counts
+    return counts
 
-    # join the per-lane fields the result reports; the direction state is
-    # dropped, never copied into one stack
+
+def _flat_field(c: EngineCarry, field: str) -> torch.Tensor:
+    """A per-lane field over the flat lane axis (padding included)."""
+    parts = [getattr(ls, field) for ls in c.groups]
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def _result(c: EngineCarry, B: int, opts: EngineOptions, dev) -> BFGSResult:
+    """The BFGSResult of a carry's first B lanes; the direction state is
+    dropped, never copied into one stack."""
     def joined(field):
-        parts = [getattr(ls, field) for ls in c.groups]
-        return (torch.cat(parts) if n_chunks > 1 else parts[0])[:B]
+        return _flat_field(c, field)[:B]
 
     converged, failed = joined("converged"), joined("failed")
     status = torch.where(
@@ -1548,6 +1667,206 @@ def run_multistart(
         n_failed=int(torch.sum(failed)),
         telemetry=c.telem,
     )
+
+
+def run_multistart(
+    f: Callable,
+    x0,  # (B, D) starting points (the post-PSO swarm)
+    strategy,
+    opts: EngineOptions = EngineOptions(),
+    *,
+    device="cuda",
+    retry_draws=None,
+    resume_from: Optional[str] = None,
+) -> BFGSResult:
+    """Run B independent quasi-Newton solves until required_c converge.
+
+    f:           objective (a named one routes through the fused kernels on
+                 the batched sweep).
+    x0:          (B, D) float32 starts, a tensor or array; moved to `device`.
+    strategy:    a per-lane DirectionStrategy (core/bfgs.DenseBFGS,
+                 core/lbfgs.LBFGS) or, for the batched modes only, a
+                 batch-level one (core/bfgs.BatchedDenseBFGS).
+    device:      "cuda" (default) or "cpu"; no silent CPU fallback.
+    retry_draws: the retry stream (retry_budget > 0), a draws hook
+                 (core/pso.py); None is TorchDraws(device, seed=0). Under
+                 checkpointing it needs get_state()/set_state().
+    resume_from: a checkpoint root: restore its newest committed snapshot
+                 of this solve and run on from there.
+
+    On the batched modes, `compact_every`, `repack_every` and `schedule`
+    choose the sweep schedule (see "Sweep schedules" above); every schedule
+    is array-equal to the static sweep."""
+    check_engine_options(opts)
+    retrying = opts.retry_budget > 0
+    plan = opts.fault_plan
+    injecting = plan is not None and plan.has_injections
+    preempt_at = None if plan is None else plan.preempt_at_sweep
+    if (retrying and (opts.checkpoint_every or resume_from is not None)
+            and retry_draws is not None
+            and not (hasattr(retry_draws, "get_state")
+                     and hasattr(retry_draws, "set_state"))):
+        raise ValueError(
+            "checkpoint_every/resume_from with retry_budget > 0 snapshot the "
+            "retry stream: its draws hook needs get_state() and set_state()")
+    opened = _open(f, x0, strategy, opts, device, retry_draws)
+    sweeper, x0 = opened.sweeper, opened.x0
+    B = x0.shape[0]
+    required_c = opts.required_c if opts.required_c is not None else B
+    if resume_from is None:
+        sweeper.load(opened.start(x0, owned=bool(
+            opts.compact_every or opts.repack_every or opts.schedule != "static"
+            or retrying or injecting or opts.lane_deadlines)))
+    else:
+        like = opened.like()
+        if retrying:
+            like.retry_state = sweeper.retry_draws.get_state()
+        carry = ckpt_manager.restore(resume_from, like, device=opened.device)
+        if retrying:
+            sweeper.retry_draws.set_state(carry.retry_state)
+        sweeper.load(carry)
+
+    writer = (_SnapshotWriter(opts, sweeper.retry_draws) if opts.checkpoint_every
+              else None)
+    probe = telemetry.probe_energy() if opts.auto_cost_model else None
+    _drive(sweeper, sweeper.counts(), opts.iter_max, required_c, writer, probe, preempt_at)
+    return _result(sweeper.c, B, opts, opened.device)
+
+
+# ---------------------------------------------------------------------------
+# A solve held open under host control (the solve service's engine half,
+# serve/service.py): the same carry, sweeps and host loop as run_multistart,
+# advanced to boundaries the caller chooses, with lanes admitted into chosen
+# slots between them.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class HostedSolve:
+    """A multistart solve held open under host control.
+
+    Where `run_multistart` drives a carry from its start to its stop itself,
+    a HostedSolve hands the loop to the caller: `segment()` sweeps to the
+    next host boundary, `lane_view()` reads each slot's result there (the
+    harvest), `admit()` seeds fresh lanes into chosen slots, and
+    `empty_carry()` starts a pool with every slot vacant. A lane's sweeps
+    read only its own row and an admission writes only the admitted rows,
+    so a lane's trajectory in a busy pool is the one it has alone in a
+    fresh batch of the same width.
+
+    The carry is advanced in place: `segment` and `admit` return the carry
+    they were given. The retry stream is the draws hook open_multistart
+    took (the reference's retry key)."""
+
+    _sweeper: _Sweeper
+    _start: Callable  # (X, owned) -> the carry of sweep 0
+    _x0: torch.Tensor  # (B, dim) placeholder starts of empty_carry
+    opts: EngineOptions
+    B: int  # admittable slots (flat indices >= B are chunk padding)
+    B_flat: int  # the flat lane axis with padding (mask and deadline length)
+    dim: int
+    required_c: int
+
+    def _load(self, carry: EngineCarry) -> _Sweeper:
+        sw = self._sweeper
+        if sw.c is not carry:
+            sw.load(carry)
+        return sw
+
+    def _counts(self, carry: EngineCarry) -> _Counts:
+        sw = self._load(carry)
+        if sw.counts_now is None:
+            sw.counts_now = sw.counts()
+        return sw.counts_now
+
+    def init_carry(self, X0=None, retry_draws=None) -> EngineCarry:
+        """The carry of sweep 0 at the starts X0 (B, dim), the placeholder
+        starts when None; `retry_draws` replaces the retry stream."""
+        if retry_draws is not None:
+            self._sweeper.retry_draws = retry_draws
+        X = self._x0 if X0 is None else torch.as_tensor(
+            X0, dtype=torch.float32, device=self._x0.device).contiguous()
+        carry = self._start(X, owned=True)
+        self._sweeper.load(carry)
+        return carry
+
+    def empty_carry(self, retry_draws=None) -> EngineCarry:
+        """A pool with every slot vacant (frozen, harvested as nothing): the
+        service's starting state."""
+        carry = self.init_carry(retry_draws=retry_draws)
+        self._sweeper.vacate()
+        return carry
+
+    def segment(self, carry: EngineCarry, k_end) -> EngineCarry:
+        """Sweep until k reaches k_end, every lane is frozen, or required_c
+        lanes converged, whichever comes first."""
+        counts = self._counts(carry)
+        _drive(self._sweeper, counts, min(int(k_end), self.opts.iter_max),
+               self.required_c)
+        return carry
+
+    def running(self, carry: EngineCarry) -> bool:
+        counts = self._counts(carry)
+        return (carry.k < self.opts.iter_max and counts.n_conv < self.required_c
+                and counts.n_act > 0)
+
+    def admit(self, carry: EngineCarry, mask, X, deadlines) -> EngineCarry:
+        """Seed fresh lanes into the mask'd flat slots of a live carry. mask
+        is (B_flat,) bool; X is (B, dim) start points (only mask'd rows are
+        read); deadlines is (B_flat,) int32 absolute sweep deadlines (0 =
+        none; kept only under lane_deadlines)."""
+        sw = self._load(carry)
+        dev = self._x0.device
+        X = torch.as_tensor(X, dtype=torch.float32, device=dev).contiguous()
+        deadlines = torch.as_tensor(np.asarray(deadlines, np.int32), device=dev)
+        sw.admit(np.asarray(mask, bool).reshape(-1), X, deadlines)
+        return carry
+
+    def lane_view(self, carry: EngineCarry) -> dict:
+        """Host copy of each flat slot's harvest view, in one transfer: k,
+        x, f, grad_norm (computed as run_multistart's result computes it),
+        converged, failed, n_evals and deadline, as numpy arrays."""
+        parts = {
+            "x": _flat_field(carry, "x"),
+            "f": _flat_field(carry, "f"),
+            "grad_norm": torch.linalg.vector_norm(_flat_field(carry, "g"), dim=-1),
+            "converged": _flat_field(carry, "converged"),
+            "failed": _flat_field(carry, "failed"),
+            "n_evals": _flat_field(carry, "n_evals"),
+            "deadline": (carry.deadline if carry.deadline is not None
+                         else torch.zeros((self.B_flat,), dtype=torch.int32,
+                                          device=self._x0.device)),
+        }
+        raw = torch.cat([t.contiguous().view(-1).view(torch.uint8)
+                         for t in parts.values()]).cpu().numpy()
+        view, at = {"k": np.asarray(carry.k, np.int32)}, 0
+        for name, t in parts.items():
+            dtype = np.dtype(str(t.dtype).replace("torch.", ""))
+            n = t.numel() * dtype.itemsize
+            view[name] = raw[at:at + n].view(dtype).reshape(tuple(t.shape))
+            at += n
+        return view
+
+    def finalize(self, carry: EngineCarry) -> BFGSResult:
+        return _result(carry, self.B, self.opts, self._x0.device)
+
+
+def open_multistart(f: Callable, x0, strategy, opts: EngineOptions = EngineOptions(),
+                    *, device="cuda", retry_draws=None) -> HostedSolve:
+    """Open a multistart solve under host control instead of running it.
+
+    x0 (B, D) fixes the pool's width; its values are the placeholder starts
+    empty_carry initialises the vacant slots from. Returns a HostedSolve
+    whose segment/admit/lane_view let a caller (the solve service) drive
+    the same sweeps and host loop run_multistart runs, harvesting retired
+    lanes and seeding queued work into freed slots between segments. The
+    same validation as run_multistart, and the cost model is refused: it
+    needs the loop to itself."""
+    check_engine_options(opts, hosted=True)
+    opened = _open(f, x0, strategy, opts, device, retry_draws)
+    B, D = opened.x0.shape
+    return HostedSolve(
+        _sweeper=opened.sweeper, _start=opened.start, _x0=opened.x0, opts=opts, B=B,
+        B_flat=opened.n_chunks * opened.sweeper.width, dim=D,
+        required_c=opts.required_c if opts.required_c is not None else B)
 
 
 # ---------------------------------------------------------------------------

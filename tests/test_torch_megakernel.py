@@ -57,8 +57,7 @@ B, D, K, C1 = 16, 8, ITER_LS, 0.3
 BOX = {"sphere": 5.0, "rastrigin": 5.12, "rosenbrock": 2.0, "ackley": 32.768}
 # names of the reference's repro.core.__all__ that the port has not yet, by
 # ROADMAP item
-NOT_PORTED = {"HostedSolve": "A13", "open_multistart": "A13",
-              "distributed_zeus": "A14"}
+NOT_PORTED = {"distributed_zeus": "A14"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -413,6 +412,18 @@ def test_core_exports_match_reference():
     from repro_torch.core import (DirectionStrategy, consensus_point,  # noqa: F401
                                   solver_names)
     assert solver_names() == tuple(sorted(jengine.solver_names()))
+
+
+@pytest.mark.parametrize("name", ["EngineOptions", "BFGSOptions", "ZeusOptions"])
+def test_option_fields_match_reference(name):
+    """The option dataclasses carry the reference's fields, lane_deadlines
+    included, and no other."""
+    import dataclasses
+
+    fields = [{f.name for f in dataclasses.fields(getattr(mod, name))}
+              for mod in (pcore, jcore)]
+    assert fields[0] == fields[1]
+    assert name != "EngineOptions" or "lane_deadlines" in fields[0]
 
 
 def test_zeus_jit_runs_zeus():
