@@ -195,6 +195,32 @@ Phases (any failure exits non-zero):
        serve-cli      — repro_torch.launch.serve.main with
                         tests/test_system.py's arguments on the card: four
                         requests drained, each converged with two lanes;
+  4g. the float64 path (ROADMAP A19a), with phases of its own, after the
+     LM runs: (3) B1a/B1b, B2, B3 and B4 through their float64 symbols
+     against their float64 plain versions to TOL64 (1e-12), at the
+     paper-f64, scale-f64 and dijet-f64 shapes (B1 on the ladder rows for
+     all four objectives, value-only f == value+grad f bitwise; B3 of 64
+     lanes alone bitwise the same lanes of the batch), B1 at D = 1, 5, 16,
+     17, 128, 907 and 908 (both sides of the rows/staged edge and of the
+     float64 staged/direct edge, ops.fused_obj_staged_max_dim(float64))
+     at 4096 rows and at a ragged count from an aligned base and from 8
+     bytes past a 16-byte boundary, and B2 at the cells' shapes and at D =
+     32/33 and 168/169 (ops.update_smem_dim(float64)), H' == H bitwise on
+     ρ = 0 lanes and 64 lanes alone bitwise the same lanes of the batch;
+     every path still to port (ROADMAP A19b) raising NotImplementedError
+     naming A19b on the card, no kernel launched;
+     (4) the cells, each with every counter set to 0 just before and read
+     just after, only the float64 counters non-zero and exactly as the
+     batched sweep fixes them:
+       paper-f64      — paper with dtype="float64" (B1a, B1b, B2, B3, B4);
+       scale-f64      — scale with dtype="float64": a 2.15 GB float64 H
+                        stack and its H' (B1a, B1b, B2, B3, B4);
+       dijet-f64      — dijet with dtype="float64", the counts' rate in
+                        float64 as the example computes it: the example's
+                        two assertions and n_converged >= 32 (B2, B3, B4);
+     (4c) each profiled; (5) each float64 kernel at each of its cells timed
+     beside its plain version, both bounds (bytes at 8 bytes an element;
+     fp64 operations at 34 TFLOP/s) and, for B3, torch.bmm in float64;
   4d. peak device memory of run_multistart at the scale shape (3 sweeps),
      unchunked and with lane_chunk 4096 and 1024: chunking must lower it;
   5. time each kernel with CUDA events beside its plain version, its bound
@@ -215,7 +241,9 @@ Phases (any failure exits non-zero):
      torch.cuda.stream(side), where a launch is held against its plain
      version;
   6. print one JSON line {"kernels": [...]} with the measurements (B1a's
-     and B1b's entries name their variant and layout at the cell's D), the
+     and B1b's entries name their variant and layout at the cell's D; the
+     float64 entries, named <kernel>_f64/<cell>, add "dtype", "bytes_ms"
+     and "ops_ms"), the
      script's own time, the card's name and power limit, and last
      {"ok": true, "device": {...}}.
 
@@ -227,7 +255,7 @@ script into another checkout and run the two in turns).
 `python3 chip_smoke.py --fused` runs only B1a's and B1b's checks and times
 of phases 3 and 5, the same way. `python3 chip_smoke.py --tiny` runs only
 the tiny-bucket checks of phases 3 and 3b, and `--serve` the service
-cells of phase 4f.
+cells of phase 4f, and `--f64` the float64 phases (4g).
 
 It imports neither JAX nor the JAX package `repro`.
 """
@@ -243,6 +271,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+FP64_OPS_PER_S = 34e12  # H100 SXM fp64 outside the tensor cores (the kernels use no DMMA)
 # dense bf16 tensor-core peak by the card's name (NVIDIA data sheets); an
 # H100 or H200 SXM part, named "H100 80GB HBM3" or "H200", takes the default
 BF16_PEAK = (("H100 PCIe", 756e12), ("H100 NVL", 835e12))
@@ -366,6 +395,36 @@ DIJET_EDGES = (1000.0, 6000.0, 41)
 DIJET_SEED = 7
 # the fields a schedule's solve must share with its static counterpart
 SAME_FIELDS = ("x", "fval", "grad_norm", "status", "n_evals")
+# float64 (ROADMAP A19a): B1a/B1b, B2, B3 and B4 in double, on the batched
+# dense-BFGS path. Kernel against plain version on identical float64
+# inputs: |k - p| <= TOL64·max(1, max|p|) + TOL64·|p| (sums in another
+# order move a double result by a few ulps of the largest term).
+TOL64 = 1e-12
+# the float64 cells (phase 4): the float32 cell each copies, in float64
+F64_CELLS = {"paper-f64": "paper", "scale-f64": "scale", "dijet-f64": "dijet"}
+# the cells at which each float64 kernel is held (phase 3) and timed (phase
+# 5); the dijet NLL has no fused body, so B1 never runs there
+F64_KERNEL_CELLS = {
+    "fused_value": ("paper-f64", "scale-f64"),
+    "fused_value_grad": ("paper-f64", "scale-f64"),
+    "guarded_update_direction": ("paper-f64", "scale-f64", "dijet-f64"),
+    "direction": ("paper-f64", "scale-f64", "dijet-f64"),
+    "pso_step_update": ("paper-f64", "scale-f64", "dijet-f64"),
+}
+# B1a/B1b in float64 at each row layout's edge (rows to 16, staged from 17),
+# the scale cell's 128 and both edges of the staged variant
+# (ops.fused_obj_staged_max_dim(float64) = 907, and 908, direct), each at
+# FUSED_ROWS rows and at a ragged count from the base and from a view 8
+# bytes past a 16-byte boundary (the bulk copies' unaligned head)
+F64_FUSED_DIMS = (1, 5, 16, 17, 128, 907, 908)
+F64_FUSED_OFFSETS = (0, 1)
+# B2 in float64 at the cells' shapes and both edges of each variant
+# (ops.update_variant(D, float64): small to 32, single read to
+# ops.update_smem_dim(float64) = 168, streaming above)
+F64_UPDATE_SHAPES = (("paper-f64", 512, 5), ("scale-f64", 16384, 128),
+                     ("dijet-f64", 512, 4), ("small edge", 300, 32),
+                     ("single-read first", 300, 33), ("single-read edge", 256, None),
+                     ("streaming first", 256, None))
 # phase 4e: the phase-4 solves its cells are held against
 FAULT_BASES = ("paper", "megakernel-paper", "scale", "auto-megakernel-scale")
 # checkpoint cadence, snapshots kept and preemption sweep of each cell
@@ -642,34 +701,36 @@ def compare(kernel_out, plain_out, rtol=RTOL, atol=ATOL):
     return float(err.max()), float((err / ref.clamp_min(1e-3 * scale)).max()), ok
 
 
-def kernel_cases(solve, name, dim, gen):
+def kernel_cases(solve, name, dim, gen, dtype=None):
     """The kernels' inputs at the shapes this solve gives them: the Armijo
     ladder (K·C rows), the commit value+grad (C rows), the first direction
-    (C lanes) and the PSO step (N particles), C being the lane chunk."""
+    (C lanes) and the PSO step (N particles), C being the lane chunk; in
+    `dtype` (float32 unless given), in the objective's box."""
     import torch
     from repro_torch.core import get_objective
 
+    dtype = torch.float32 if dtype is None else dtype
     obj = get_objective(name)
     n = solve["opts"].pso.n_particles
     C = solve["opts"].lane_chunk or n
 
     def box(*shape):
         return obj.lower + (obj.upper - obj.lower) * torch.rand(
-            shape, generator=gen, device="cuda")
+            shape, generator=gen, device="cuda", dtype=dtype)
 
     def normal(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
 
     ladder = box(K_LADDER * C, dim)
     ladder[0].zero_()  # ackley's origin row: f finite, gradient NaN
     A = 0.1 * normal(C, dim, dim) / math.sqrt(dim)
-    H = torch.eye(dim, device="cuda") + 0.5 * (A + A.transpose(1, 2))
+    H = torch.eye(dim, device="cuda", dtype=dtype) + 0.5 * (A + A.transpose(1, 2))
     return dict(
         ladder=ladder, commit=box(C, dim).contiguous(), H=H.contiguous(),
         g_new=normal(C, dim),
         pso=[box(n, dim), normal(n, dim), box(n, dim), box(dim),
-             torch.rand(n, dim, generator=gen, device="cuda"),
-             torch.rand(n, dim, generator=gen, device="cuda")],
+             torch.rand(n, dim, generator=gen, device="cuda", dtype=dtype),
+             torch.rand(n, dim, generator=gen, device="cuda", dtype=dtype)],
     )
 
 
@@ -677,7 +738,23 @@ def bounds(kname, case, dim, objective):
     """(bound_ms, bound_by): the larger of bytes over 3.35 TB/s and fp32
     operations over 67 TFLOP/s, each input read once and each output
     written once; a transcendental counts as one operation."""
-    f4 = 4
+    return larger(*bytes_ops_ms(kname, case, dim, objective))
+
+
+def larger(t_bytes, t_ops):
+    """(bound_ms, bound_by) from the two times."""
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bytes_ops_ms(kname, case, dim, objective):
+    """(bytes ms, operations ms) of B1a, B1b, B3 or B4 on `case`, in the
+    case's element type: its bytes over 3.35 TB/s, its operations over the
+    type's peak (fp32 67, fp64 34 TFLOP/s)."""
+    import torch
+
+    t = case["H"] if "H" in case else case["ladder"]
+    f4 = t.element_size()
+    peak = FP64_OPS_PER_S if t.dtype is torch.float64 else FP32_OPS_PER_S
     if kname in ("fused_value", "fused_value_grad"):
         N = case["ladder" if kname == "fused_value" else "commit"].shape[0]
         nbytes = N * dim * f4 + N * f4
@@ -695,9 +772,7 @@ def bounds(kname, case, dim, objective):
         N = case["pso"][0].shape[0]
         nbytes = 7 * N * dim * f4 + dim * f4
         ops = 11 * N * dim
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
 
 
 def swarm_cases(gen):
@@ -726,27 +801,29 @@ def meanfield_bounds(case):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def update_cases(gen, shapes=UPDATE_SHAPES):
+def update_cases(gen, shapes=UPDATE_SHAPES, dtype=None):
     """Inputs of B2, B7a and B7b at UPDATE_SHAPES: H = I + a small symmetric
     term and g' for all three; for B2 (guarded) every seventh lane frozen
     (ρ = 0, δx and δg zeroed) and ρ = 1/δxᵀδg elsewhere; for B7a/B7b
     (unguarded) the same pairs unfrozen, lane 0 on the engine's stand-in
-    pair (1, …, 1)."""
+    pair (1, …, 1). In `dtype` (float32 unless given)."""
     import torch
     from repro_torch.kernels import ops
 
-    def normal(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
+    dtype = torch.float32 if dtype is None else dtype
 
-    smem_dim = ops.update_smem_dim()
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    smem_dim = ops.update_smem_dim(dtype)
     cases = {}
     for label, B, D in shapes:
         if D is None:
             D = smem_dim if label == "single-read edge" else smem_dim + 1
         A = 0.1 * normal(B, D, D) / math.sqrt(D)
-        H = torch.eye(D, device="cuda") + 0.5 * (A + A.transpose(1, 2))
+        H = torch.eye(D, device="cuda", dtype=dtype) + 0.5 * (A + A.transpose(1, 2))
         dx = normal(B, D)
-        dg = dx * (1.0 + torch.rand(B, D, generator=gen, device="cuda"))
+        dg = dx * (1.0 + torch.rand(B, D, generator=gen, device="cuda", dtype=dtype))
         frozen = torch.arange(B, device="cuda") % 7 == 0  # the guard's ρ = 0 lanes
         rho = torch.where(frozen, 0.0, 1.0 / torch.sum(dx * dg, dim=-1))
         udx, udg = dx.clone(), dg.clone()
@@ -775,11 +852,16 @@ def update_calls(c):
     }
 
 
-def update_bounds(kname, B, D):
+def update_bounds(kname, B, D, f4=4, peak=FP32_OPS_PER_S):
     """bounds() for B2, B7a and B7b at B lanes of D: read H, δx, δg, write H';
     u = Hδg, s, and 8 ops an entry of H'; B2 also reads g' and ρ and writes
-    p' (2·D² more ops), B7a reduces δxᵀδg, B7b does both."""
-    f4 = 4
+    p' (2·D² more ops), B7a reduces δxᵀδg, B7b does both. Elements of f4
+    bytes, operations at `peak`."""
+    return larger(*update_bytes_ops_ms(kname, B, D, f4, peak))
+
+
+def update_bytes_ops_ms(kname, B, D, f4=4, peak=FP32_OPS_PER_S):
+    """(bytes ms, operations ms) of update_bounds."""
     if kname == "guarded_update_direction":
         nbytes = 2 * B * D * D * f4 + 4 * B * D * f4 + B * f4
         ops = B * (12 * D * D + 2 * D)
@@ -789,15 +871,14 @@ def update_bounds(kname, B, D):
         if kname == "bfgs_update_direction":
             nbytes += 2 * B * D * f4  # read g', write p'
             ops += 2 * B * D * D
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
 
 
 def bitwise_equal(a, b) -> bool:
     import torch
 
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    bits = torch.int64 if a.element_size() == 8 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits))
 
 
 # ---------------------------------------------------------------------------
@@ -858,35 +939,38 @@ def check_kernels(cases_by_solve, solve_cfg):
     return errors
 
 
-def fused_layout(D) -> str:
+def fused_layout(D, dtype=None) -> str:
     """B1a/B1b's variant and row layout at D, as ops.fused_obj_variant,
     fused_obj_row_threads, fused_obj_tile_rows and fused_obj_stages give
-    them."""
+    them (in float32 unless `dtype` is given)."""
     from repro_torch.kernels import ops
 
     if not hasattr(ops, "fused_obj_variant"):  # a tree from before the variants (--fused)
         return "before the variants by D"
-    variant = ops.fused_obj_variant(D)
+    kw = {} if dtype is None else {"dtype": dtype}
+    variant = ops.fused_obj_variant(D, **kw)
     if variant == "rows":
         P = ops.fused_obj_row_threads(D)
         return f"rows: {P} thread{'s' if P > 1 else ''} a row, {32 // P} rows a warp"
     if variant == "staged":
-        return (f"staged: a warp a row, tiles of {ops.fused_obj_tile_rows(D)} rows in a "
-                f"ring of {ops.fused_obj_stages(D)} stages")
+        return (f"staged: a warp a row, tiles of {ops.fused_obj_tile_rows(D, **kw)} rows "
+                f"in a ring of {ops.fused_obj_stages(D, **kw)} stages")
     return "direct: a warp a row from device memory"
 
 
-def fused_inputs(name, rows, D, offset, gen):
+def fused_inputs(name, rows, D, offset, gen, dtype=None):
     """`rows` × D starts in the objective's box, row 0 at the origin, as a
-    contiguous view `offset` floats into a buffer."""
+    contiguous view `offset` elements into a buffer (float32 unless `dtype`
+    is given)."""
     import torch
     from repro_torch.core import get_objective
 
+    dtype = torch.float32 if dtype is None else dtype
     obj = get_objective(name)
-    buf = torch.empty(rows * D + offset, device="cuda")
+    buf = torch.empty(rows * D + offset, device="cuda", dtype=dtype)
     x = buf[offset:].view(rows, D)
     x.copy_(obj.lower + (obj.upper - obj.lower) * torch.rand(
-        rows, D, generator=gen, device="cuda"))
+        rows, D, generator=gen, device="cuda", dtype=dtype))
     x[0] = 0.0
     return x
 
@@ -989,6 +1073,351 @@ def check_updates(cases):
               f"H' bitwise; stand-in lane finite; lanes {lo}..{alone.stop - 1} alone =="
               " in batch bitwise")
     return errors
+
+
+def solves_f64():
+    """The float64 cells of phase 4: paper, scale and dijet with
+    dtype="float64", each launching only the float64 kernels, exactly as
+    often as the batched sweep fixes: per chunk-step one B1a (the ladder),
+    one B1b (the commit) and one B2; at init one B1b and one B3 a chunk; B4
+    iter_pso times (dijet: no B1, its NLL has no fused body)."""
+    base = solves()
+
+    def exact(pso_iters, n_chunks, fused=True):
+        def counts(res):
+            trips = res.raw.map_trips
+            out = {"guarded_update_direction_f64": trips, "direction_f64": n_chunks,
+                   "pso_step_update_f64": pso_iters}
+            if fused:
+                out.update(fused_value_f64=trips, fused_value_grad_f64=n_chunks + trips)
+            return out
+        return counts
+
+    cells = {}
+    for cell, src in F64_CELLS.items():
+        cfg = {k: v for k, v in base[src].items()
+               if k not in ("must", "exact", "compare", "cluster")}
+        cfg["opts"] = dataclasses.replace(base[src]["opts"], dtype="float64")
+        cells[cell] = cfg
+    cells["paper-f64"]["exact"] = exact(8, 4)
+    cells["scale-f64"]["exact"] = exact(5, 1)
+    cells["dijet-f64"]["exact"] = exact(10, 1, fused=False)
+    return cells
+
+
+def f64_cases(solve_cfg, gen):
+    """Phase 3 inputs of the float64 cells, in float64: kernel_cases at each
+    cell's shapes (the dijet cell's in sphere's box: it runs no B1)."""
+    import torch
+
+    return {cell: kernel_cases(cfg, cfg.get("objective", "sphere"), cfg["dim"], gen,
+                               torch.float64)
+            for cell, cfg in solve_cfg.items()}
+
+
+def check_f64_kernels(cases, solve_cfg):
+    """Phase 3, float64: B1a/B1b (all four objectives on the ladder rows,
+    value-only f == value+grad f bitwise, ackley's NaN gradient at the
+    origin; the commit rows), B3 (and ALONE_LANES lanes alone bitwise equal
+    to the same lanes of the batch) and B4, each against its plain version
+    at TOL64, at the float64 cells' shapes. Returns {(kernel, cell): (abs,
+    rel, ok)}."""
+    import torch
+    from repro_torch.kernels import direction, fused_obj, pso_step
+
+    errors = {}
+    for cell, case in cases.items():
+        objective, dim = solve_cfg[cell].get("objective"), solve_cfg[cell]["dim"]
+        if cell in F64_KERNEL_CELLS["fused_value"]:
+            for obj_name in fused_obj.FUSED_OBJECTIVES:
+                x = case["ladder"]
+                fk, _ = fused_obj.value_grad_cuda(obj_name, x, with_grad=False)
+                fkg, gk = fused_obj.value_grad_cuda(obj_name, x)
+                fp, gp = fused_obj.value_grad_plain(obj_name, x)
+                require(fk.dtype == torch.float64 and gk.dtype == torch.float64,
+                        f"{cell}/{obj_name}: float64 B1 returned {fk.dtype}/{gk.dtype}")
+                require(bitwise_equal(fk, fkg), f"{cell}/{obj_name}: float64 value-only f "
+                        "is not bitwise equal to value+grad f")
+                ea, eb = compare(fk, fp, TOL64, TOL64), compare(gk, gp, TOL64, TOL64)
+                require(ea[2] and eb[2], f"{cell}/{obj_name}: float64 fused kernel "
+                        f"disagrees with plain (f {ea[:2]}, g {eb[:2]})")
+                if obj_name == "ackley":
+                    require(bool(torch.isnan(gk[0]).all()) and bool(torch.isfinite(fkg[0])),
+                            f"{cell}: float64 ackley gradient at the origin is not NaN")
+                if obj_name == objective:
+                    errors["fused_value", cell] = ea
+                print(f"check {cell} {obj_name:10s} ladder N={x.shape[0]} D={dim} float64: "
+                      f"f abs/rel {ea[0]:.3g}/{ea[1]:.3g}, g abs/rel {eb[0]:.3g}/{eb[1]:.3g}, "
+                      "value-only f bitwise equal")
+                del fk, fkg, gk, fp, gp
+            fk, gk = fused_obj.value_grad_cuda(objective, case["commit"])
+            fp, gp = fused_obj.value_grad_plain(objective, case["commit"])
+            ea, eb = compare(fk, fp, TOL64, TOL64), compare(gk, gp, TOL64, TOL64)
+            require(ea[2] and eb[2], f"{cell}: float64 fused_value_grad disagrees")
+            errors["fused_value_grad", cell] = (max(ea[0], eb[0]), max(ea[1], eb[1]), True)
+
+        H, g = case["H"], case["g_new"]
+        pk = direction.direction_cuda(H, g)
+        e = compare(pk, direction.direction_plain(H, g), TOL64, TOL64)
+        require(e[2] and pk.dtype == torch.float64, f"{cell}: float64 direction disagrees "
+                f"{e[:2]}")
+        alone = slice(5, 5 + ALONE_LANES)
+        require(bitwise_equal(pk[alone], direction.direction_cuda(
+            H[alone].contiguous(), g[alone].contiguous())),
+            f"{cell}: float64 direction of {ALONE_LANES} lanes alone differs from the batch")
+        errors["direction", cell] = e
+
+        xk, vk = pso_step.pso_step_cuda(*case["pso"], 0.5, 1.2, 1.5)
+        xp, vp = pso_step.pso_step_plain(*case["pso"], 0.5, 1.2, 1.5)
+        ex, ev = compare(xk, xp, TOL64, TOL64), compare(vk, vp, TOL64, TOL64)
+        require(ex[2] and ev[2] and xk.dtype == torch.float64,
+                f"{cell}: float64 pso_step disagrees")
+        errors["pso_step_update", cell] = (max(ex[0], ev[0]), max(ex[1], ev[1]), True)
+        torch.cuda.synchronize()
+        for (k, c), (abs_e, rel_e, _) in errors.items():
+            if c == cell:
+                print(f"check {cell} {k} float64: max_abs_err={abs_e:.3g} "
+                      f"max_rel_err={rel_e:.3g}")
+    return errors
+
+
+def check_f64_fused_dims(gen):
+    """Phase 3, float64 B1a and B1b at every D in F64_FUSED_DIMS for all four
+    objectives, at FUSED_ROWS rows and at fused_ragged_rows(D) rows from
+    each of F64_FUSED_OFFSETS doubles into a buffer: within TOL64 of the
+    plain version, value-only f == value+grad f bitwise, ackley's gradient
+    NaN at the origin."""
+    import torch
+    from repro_torch.kernels import fused_obj
+
+    f64 = torch.float64
+    for D in F64_FUSED_DIMS:
+        layouts = [(FUSED_ROWS, 0)] + [(fused_ragged_rows(D), o) for o in F64_FUSED_OFFSETS]
+        for rows, offset in layouts:
+            worst_f = worst_g = 0.0
+            for name in fused_obj.FUSED_OBJECTIVES:
+                x = fused_inputs(name, rows, D, offset, gen, f64)
+                fk, _ = fused_obj.value_grad_cuda(name, x, with_grad=False)
+                fkg, gk = fused_obj.value_grad_cuda(name, x)
+                fp, gp = fused_obj.value_grad_plain(name, x)
+                where = f"B1 float64 D={D} N={rows} offset {offset} {name}"
+                require(bitwise_equal(fk, fkg), f"{where}: value-only f is not bitwise "
+                        "equal to value+grad f")
+                ea, eb = compare(fk, fp, TOL64, TOL64), compare(gk, gp, TOL64, TOL64)
+                require(ea[2] and eb[2], f"{where}: fused kernel disagrees with plain "
+                        f"(f {ea[:2]}, g {eb[:2]})")
+                if name == "ackley":
+                    require(bool(torch.isnan(gk[0]).all()) and bool(torch.isfinite(fkg[0])),
+                            f"{where}: ackley gradient at the origin is not NaN")
+                worst_f, worst_g = max(worst_f, ea[0]), max(worst_g, eb[0])
+                del x, fk, fkg, gk, fp, gp
+            torch.cuda.synchronize()
+            print(f"check B1 float64 N={rows} D={D} offset {offset} ({fused_layout(D, f64)}),"
+                  f" all four objectives: max_abs_err f {worst_f:.3g} g {worst_g:.3g}; "
+                  "value-only f == value+grad f bitwise; ackley's gradient NaN at the origin")
+
+
+def check_f64_updates(cases):
+    """Phase 3, float64 B2 at every F64_UPDATE_SHAPES shape, in the variant
+    its D selects: against the plain version at TOL64, H' == H bitwise on
+    the ρ = 0 lanes, and ALONE_LANES lanes launched alone bitwise equal to
+    the same lanes inside the batch. Returns {(kernel, label): errors}."""
+    import torch
+    from repro_torch.kernels import bfgs_update as bu
+    from repro_torch.kernels import ops
+
+    errors = {}
+    for label, c in cases.items():
+        B, D = c["g_new"].shape
+        variant = ops.update_variant(D, torch.float64)
+        lo = max(0, min(5, B - ALONE_LANES))
+        alone = slice(lo, min(B, lo + ALONE_LANES))
+        args = (c["H"], c["dx"], c["dg"], c["g_new"], c["rho"])
+        got = bu.guarded_update_direction_cuda(*args)
+        want = bu.guarded_update_direction_plain(*args)
+        errs = [compare(k, p, TOL64, TOL64) for k, p in zip(got, want)]
+        require(all(e[2] for e in errs) and got[0].dtype == torch.float64,
+                f"update float64 {label} ({variant}): B2 disagrees with plain "
+                f"{[e[:2] for e in errs]}")
+        errors["guarded_update_direction", label] = (max(e[0] for e in errs),
+                                                     max(e[1] for e in errs), True)
+        sub = bu.guarded_update_direction_cuda(*(t[alone].contiguous() for t in args))
+        require(all(bitwise_equal(k[alone], part) for k, part in zip(got, sub)),
+                f"update float64 {label} ({variant}): lanes {lo}..{alone.stop - 1} alone "
+                "differ from the same lanes in the batch")
+        frozen = c["frozen"]
+        require(bitwise_equal(got[0][frozen], c["H"][frozen]),
+                f"update float64 {label} ({variant}): H' != H bitwise on rho = 0 lanes")
+        del got, want, sub
+        torch.cuda.synchronize()
+        print(f"check update float64 {label} B={B} D={D} ({variant}): max_abs_err "
+              f"{errors['guarded_update_direction', label][0]:.3g}; H' == H bitwise on "
+              f"{int(frozen.sum())} rho = 0 lanes; lanes {lo}..{alone.stop - 1} alone == "
+              "in batch bitwise")
+    return errors
+
+
+def check_f64_refusals():
+    """Phase 4g: every float64 path still to port (ROADMAP A19b) raises
+    NotImplementedError naming A19b on the card, as on the CPU, before any
+    kernel launches."""
+    import torch
+    from repro_torch.core import (BatchedDenseBFGS, EngineOptions, MeanFieldPSOOptions,
+                                  PSOOptions, ZeusOptions, get_objective, open_multistart,
+                                  run_multistart, sequential_zeus, zeus)
+    from repro_torch.core.bfgs import serial_bfgs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.faults import FaultPlan
+    from repro_torch.serve.service import ProblemRegistry
+
+    obj = get_objective("sphere")
+    x0 = torch.zeros((4, 2), dtype=torch.float64, device="cuda")
+
+    def solve(**kw):
+        opts = ZeusOptions(pso=PSOOptions(n_particles=8, iter_pso=1), dtype="float64", **kw)
+        return lambda: zeus(obj.fn, 2, obj.lower, obj.upper, opts, device="cuda")
+
+    paths = {
+        "megakernel": solve(sweep_mode="megakernel"),
+        "per_lane": solve(sweep_mode="per_lane"),
+        "lbfgs": solve(solver="lbfgs"),
+        "meanfield": solve(phase1="meanfield",
+                           meanfield=MeanFieldPSOOptions(n_particles=8, iter_pso=1)),
+        "ladder_len": solve(ladder_len=4),
+        "compact_every": solve(compact_every=1),
+        "repack_every": solve(repack_every=1, lane_chunk=4),
+        "schedule": solve(schedule="auto"),
+        "retry": solve(retry_budget=1),
+        "fault_plan": solve(fault_plan=FaultPlan(preempt_at_sweep=3)),
+        "checkpoint": solve(checkpoint_every=2, checkpoint_dir="unused"),
+        "resume": lambda: zeus(obj.fn, 2, obj.lower, obj.upper,
+                               ZeusOptions(dtype="float64"), device="cuda", resume="unused"),
+        "engine megakernel": lambda: run_multistart(
+            obj.fn, x0, BatchedDenseBFGS(), EngineOptions(sweep_mode="megakernel"),
+            device="cuda"),
+        "sequential_zeus": lambda: sequential_zeus(
+            obj.fn, 0, 2, -1.0, 1.0, ZeusOptions(dtype="float64"), device="cuda"),
+        "serial_bfgs": lambda: serial_bfgs(obj.fn, x0[0], device="cuda"),
+        "open_multistart": lambda: open_multistart(
+            obj.fn, x0, BatchedDenseBFGS(), EngineOptions(lane_deadlines=True),
+            device="cuda"),
+        "service": lambda: ProblemRegistry().register("s", "sphere", 2,
+                                                      ZeusOptions(dtype="float64")),
+    }
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for name, call in paths.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            require("A19b" in str(e), f"float64 {name}: the refusal does not name A19b: {e}")
+        else:
+            raise SmokeFailure(f"float64 {name} ran instead of raising NotImplementedError")
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in ops.launch_counts().items() if n}
+    require(not launched, f"a refused float64 path launched kernels: {launched}")
+    print(f"check float64 refusals: all {len(paths)} A19b paths raise NotImplementedError "
+          "naming A19b on the card, no kernel launched")
+
+
+def time_f64_kernels(cases, upd_cases, solve_cfg):
+    """Phase 5, float64: each kernel at each of its F64_KERNEL_CELLS, kernel
+    and plain version in turns (plain, kernel, kernel, plain), beside both
+    bounds (bytes at 8 bytes an element over 3.35 TB/s, operations over
+    fp64's 34 TFLOP/s) and, for B3, torch.bmm on the same float64 inputs."""
+    import torch
+    from repro_torch.kernels import bfgs_update as bu
+    from repro_torch.kernels import direction, fused_obj, pso_step
+
+    timings = {}
+    for cell, case in cases.items():
+        objective, dim = solve_cfg[cell].get("objective"), solve_cfg[cell]["dim"]
+        u = upd_cases[cell]
+        uargs = (u["H"], u["dx"], u["dg"], u["g_new"], u["rho"])
+        pairs = {
+            "fused_value": (
+                lambda: fused_obj.value_grad_cuda(objective, case["ladder"], False),
+                lambda: fused_obj.value_grad_plain(objective, case["ladder"], False), None),
+            "fused_value_grad": (
+                lambda: fused_obj.value_grad_cuda(objective, case["commit"]),
+                lambda: fused_obj.value_grad_plain(objective, case["commit"]), None),
+            "guarded_update_direction": (
+                lambda: bu.guarded_update_direction_cuda(*uargs),
+                lambda: bu.guarded_update_direction_plain(*uargs), None),
+            "direction": (
+                lambda: direction.direction_cuda(case["H"], case["g_new"]),
+                lambda: direction.direction_plain(case["H"], case["g_new"]),
+                lambda: torch.bmm(case["H"], case["g_new"][:, :, None])),
+            "pso_step_update": (
+                lambda: pso_step.pso_step_cuda(*case["pso"], 0.5, 1.2, 1.5),
+                lambda: pso_step.pso_step_plain(*case["pso"], 0.5, 1.2, 1.5), None),
+        }
+        for kname, (kern, plain, lib) in pairs.items():
+            if cell not in F64_KERNEL_CELLS[kname]:
+                continue
+            p1, k1, k2, p2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
+            lib_ms = time_ms(lib) if lib is not None else None
+            if kname == "guarded_update_direction":
+                B, D = u["g_new"].shape
+                t_bytes, t_ops = update_bytes_ops_ms(kname, B, D, 8, FP64_OPS_PER_S)
+            else:
+                t_bytes, t_ops = bytes_ops_ms(kname, case, dim, objective)
+            bound_ms, bound_by = larger(t_bytes, t_ops)
+            timings[kname, cell] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                                        library_ms=lib_ms, bound_ms=bound_ms,
+                                        bound_by=bound_by, bytes_ms=t_bytes, ops_ms=t_ops)
+            print(f"time {cell} {kname} float64: kernel {k1:.4f}/{k2:.4f} ms, plain "
+                  f"{p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; bytes "
+                  f"{t_bytes:.4f}, fp64 operations {t_ops:.4f})"
+                  + (f", torch.bmm {lib_ms:.4f} ms" if lib_ms is not None else ""))
+    return timings
+
+
+def f64_entries(launches, errors, timings, solve_cfg):
+    """The float64 kernels' entries of the kernels line."""
+    import torch
+    from repro_torch.kernels import ops
+
+    entries = []
+    for kname, cells in F64_KERNEL_CELLS.items():
+        source, replaces = SOURCES[kname]
+        for cell in cells:
+            t = timings[kname, cell]
+            entries.append(dict(
+                name=f"{kname}_f64/{cell}", route="cuda", source=source, replaces=replaces,
+                dtype="float64", launches=launches[cell][f"{kname}_f64"],
+                max_abs_err=errors[kname, cell][0], ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"], bytes_ms=t["bytes_ms"],
+                ops_ms=t["ops_ms"], library_ms=t["library_ms"]))
+            dim = solve_cfg[cell]["dim"]
+            if kname in ("fused_value", "fused_value_grad"):
+                entries[-1]["variant"] = ops.fused_obj_variant(dim, torch.float64)
+                entries[-1]["layout"] = f"{fused_layout(dim, torch.float64)} at D = {dim}"
+            elif kname == "guarded_update_direction":
+                entries[-1]["variant"] = ops.update_variant(dim, torch.float64)
+    return entries
+
+
+def float64_phases(gen):
+    """Phases 3, 4, 4c and 5 of the float64 path (ROADMAP A19a). Returns the
+    kernels line's float64 entries and the cells' launch counts."""
+    import torch
+
+    cfg = solves_f64()
+    cases = f64_cases(cfg, gen)
+    errors = check_f64_kernels(cases, cfg)
+    check_f64_fused_dims(gen)
+    upd_cases = update_cases(torch.Generator(device="cuda").manual_seed(64),
+                             F64_UPDATE_SHAPES, torch.float64)
+    errors.update(check_f64_updates(upd_cases))
+    check_f64_refusals()
+    launches, _, _ = run_solves(cfg)  # phase 4, the float64 cells
+    profile_solves(cfg)  # phase 4c
+    timings = time_f64_kernels(cases, upd_cases, cfg)  # phase 5
+    entries = f64_entries(launches, errors, timings, cfg)
+    del cases, upd_cases
+    torch.cuda.empty_cache()
+    return entries, launches
 
 
 def check_meanfield_step(cases):
@@ -1517,14 +1946,17 @@ def compare_per_lane_sweeps(sname, cfg):
           "lane scale " + ", ".join(f"{k}={v:.3g}" for k, v in worst.items()))
 
 
-def dijet_problem():
+def dijet_problem(dtype="float32"):
     """The dijet fit's data and NLL (examples/fit_dijet.py): counts drawn
-    at DIJET_TRUE, the NLL over them, its box."""
+    at DIJET_TRUE (the rate computed in `dtype`), the NLL over them, its
+    box."""
     import numpy as np
+    import torch
     from repro_torch.core.objectives import make_dijet_nll, simulate_dijet_counts
 
     edges = np.linspace(*DIJET_EDGES)
-    counts = simulate_dijet_counts(np.asarray(DIJET_TRUE), edges, seed=DIJET_SEED)
+    counts = simulate_dijet_counts(np.asarray(DIJET_TRUE), edges, seed=DIJET_SEED,
+                                   dtype=getattr(torch, dtype))
     return edges, counts, make_dijet_nll(edges, counts), (-5.0, 15.0)
 
 
@@ -1537,7 +1969,7 @@ def run_solve(cfg, opts=None, resume=None):
     opts = cfg["opts"] if opts is None else opts
     gen = torch.Generator(device="cuda").manual_seed(cfg["seed"])
     if cfg.get("dijet"):
-        _, _, nll, (lower, upper) = dijet_problem()
+        _, _, nll, (lower, upper) = dijet_problem(opts.dtype)
         return zeus(nll, cfg["dim"], lower, upper, opts, device="cuda", generator=gen)
     obj = get_objective(cfg["objective"])
     if cfg.get("sequential"):
@@ -2300,11 +2732,11 @@ def check_dijet(res):
     import torch
     from repro_torch.core.objectives import dijet_rate
 
-    edges, counts, nll, _ = dijet_problem()
-    true_f = float(nll(torch.tensor(DIJET_TRUE, device="cuda")))
     fit = res.best_x.cpu()
+    edges, counts, nll, _ = dijet_problem(str(fit.dtype).replace("torch.", ""))
+    true_f = float(nll(torch.tensor(DIJET_TRUE, device="cuda", dtype=fit.dtype)))
     centers = 0.5 * (edges[:-1] + edges[1:])
-    pred = dijet_rate(fit, torch.tensor(centers, dtype=torch.float32)).numpy() * (
+    pred = dijet_rate(fit, torch.tensor(centers, dtype=fit.dtype)).numpy() * (
         edges[1:] - edges[:-1])
     pulls = (counts - pred) / np.sqrt(np.maximum(pred, 1.0))
     frac2 = float(np.mean(np.abs(pulls) <= 2.0))
@@ -3201,6 +3633,13 @@ def main() -> int:
         _build.build_all()
         print(json.dumps({"launch_counts": run_service_cells()}))
         return 0
+    if sys.argv[1:] == ["--f64"]:
+        _build.build_all()
+        print_ptxas(_build.BUILD_LOG)
+        entries, launches = float64_phases(torch.Generator(device="cuda").manual_seed(64))
+        print(json.dumps({"launch_counts": launches}))
+        print(json.dumps({"kernels": entries}))
+        return 0
     if sys.argv[1:] == ["--tiny"]:
         _build.build_all()
         gen = torch.Generator(device="cuda").manual_seed(22)
@@ -3264,6 +3703,10 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_start:.1f} s] service cells done")
     launches.update(run_lm())  # phase 4, the LM serving path (with its 4c profile)
     print(f"[{time.perf_counter() - t_start:.1f} s] LM runs done")
+    # phases 3, 4, 4c and 5 of the float64 path, on a generator of their own
+    f64_entries_, f64_launches = float64_phases(torch.Generator(device="cuda").manual_seed(64))
+    launches.update(f64_launches)
+    print(f"[{time.perf_counter() - t_start:.1f} s] float64 kernels and cells done")
     chunk_memory()  # phase 4d
     profile_solves(solve_cfg)  # phase 4c
     print(f"[{time.perf_counter() - t_start:.1f} s] solves profiled")
@@ -3300,6 +3743,7 @@ def main() -> int:
                 dim = solve_cfg[cell]["dim"]
                 entries[-1]["variant"] = ops.fused_obj_variant(dim)
                 entries[-1]["layout"] = f"{fused_layout(dim)} at D = {dim}"
+    entries += f64_entries_
     print(json.dumps({"launch_counts": launches}))
     print(json.dumps({"enqueue_us": enqueue_us}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

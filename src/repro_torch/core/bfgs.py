@@ -24,6 +24,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch._device import refuse_float64
 from repro_torch.core import engine as E
 from repro_torch.core.engine import (  # re-exported reference API  # noqa: F401
     CONVERGED,
@@ -279,6 +280,8 @@ def serial_bfgs(f: Callable, x0, opts: BFGSOptions = BFGSOptions(), *,
                 device="cuda") -> SerialResult:
     """One lane through the engine (the sequential ZEUS baseline, Fig. 2):
     required_c=1 makes the stop protocol "loop while this lane is active"."""
+    if isinstance(x0, torch.Tensor):
+        refuse_float64(x0.dtype, entry="serial_bfgs")
     eopts = dataclasses.replace(_engine_opts(opts), required_c=1, lane_chunk=None)
     x0 = torch.as_tensor(x0, dtype=torch.float32)
     res = E.run_multistart(f, x0[None, :], DenseBFGS(opts.hessian_impl), eopts,

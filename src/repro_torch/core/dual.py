@@ -179,7 +179,8 @@ def value_and_grad_fn(f: Callable, mode: str = "forward") -> Callable:
             val, tangents = vmap(lambda v: jvp(f, (x,), (v,)))(basis)
             # torch's forward AD promotes the tangent of a 0-dim float32
             # intermediate combined with a Python scalar to float64
-            # (e.g. 3.0 * x[0]); the port is float32 throughout
+            # (e.g. 3.0 * x[0]); the gradient comes back in x's dtype,
+            # float32 or float64
             return val[0], tangents.to(x.dtype)
 
         return vg

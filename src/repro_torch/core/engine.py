@@ -108,7 +108,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Protocol, Tuple
 import numpy as np
 import torch
 
-from repro_torch._device import check_dtype, resolve_device
+from repro_torch._device import check_dtype, refuse_float64, resolve_device
 from repro_torch.checkpoint import manager as ckpt_manager
 from repro_torch.core.dual import grad_eval_cost
 from repro_torch.core.linesearch import (
@@ -1412,11 +1412,12 @@ class _Sweeper:
         return self._compacted(step)
 
 
-def _lanes_like(strategy_init: Callable, C: int, D: int, batched: bool):
+def _lanes_like(strategy_init: Callable, C: int, D: int, batched: bool,
+                dtype: torch.dtype = torch.float32):
     """A lane group's structure, shapes and dtypes on the meta device (no
     memory, no objective evaluation): what a snapshot restores into."""
-    X = torch.empty((C, D), dtype=torch.float32, device="meta")
-    vec = torch.empty((C,), dtype=torch.float32, device="meta")
+    X = torch.empty((C, D), dtype=dtype, device="meta")
+    vec = torch.empty((C,), dtype=dtype, device="meta")
     flag = torch.empty((C,), dtype=torch.bool, device="meta")
     cnt = torch.empty((C,), dtype=torch.int32, device="meta")
     state = strategy_init(X)
@@ -1493,14 +1494,20 @@ class _Opened(NamedTuple):
     device: torch.device
 
 
-def _open(f, x0, strategy, opts: EngineOptions, device, retry_draws) -> _Opened:
+def _open(f, x0, strategy, opts: EngineOptions, device, retry_draws,
+          resume=None, entry: Optional[str] = None) -> _Opened:
     """The starts on the device, the sweep mode's init and step, and a
     _Sweeper over ceil(B / C) lane groups of C = lane_chunk lanes (the last
-    padded with frozen lanes)."""
+    padded with frozen lanes). A tensor x0 keeps its dtype, float32 or
+    float64 (the latter on the paths refuse_float64 lets through); anything
+    else becomes float32."""
     dev = resolve_device(device)
-    if isinstance(x0, torch.Tensor):
-        check_dtype(x0.dtype)
-    x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev).contiguous()
+    dtype = check_dtype(x0.dtype) if isinstance(x0, torch.Tensor) else torch.float32
+    if dtype is torch.float64:
+        dense = getattr(as_batched_strategy(strategy), "megakernel_dense_h", False)
+        refuse_float64(dtype, opts, solver="bfgs" if dense else type(strategy).__name__,
+                       resume=resume, entry=entry)
+    x0 = torch.as_tensor(x0, dtype=dtype, device=dev).contiguous()
     B, D = x0.shape
     if retry_draws is None:
         retry_draws = TorchDraws(dev, seed=0)
@@ -1570,7 +1577,8 @@ def _open(f, x0, strategy, opts: EngineOptions, device, retry_draws) -> _Opened:
         return sweeper.carry0(chunks, rows0)
 
     def like() -> EngineCarry:
-        return sweeper.carry0([_lanes_like(state_init, C, D, batched)] * n_chunks, rows0)
+        return sweeper.carry0([_lanes_like(state_init, C, D, batched, dtype)] * n_chunks,
+                              rows0)
 
     return _Opened(sweeper=sweeper, x0=x0, start=start, like=like, n_chunks=n_chunks,
                    device=dev)
@@ -1683,7 +1691,9 @@ def run_multistart(
 
     f:           objective (a named one routes through the fused kernels on
                  the batched sweep).
-    x0:          (B, D) float32 starts, a tensor or array; moved to `device`.
+    x0:          (B, D) starts, a float32 or float64 tensor (the solve runs
+                 in its dtype; float64 on the paths _device.refuse_float64
+                 lets through) or an array (float32); moved to `device`.
     strategy:    a per-lane DirectionStrategy (core/bfgs.DenseBFGS,
                  core/lbfgs.LBFGS) or, for the batched modes only, a
                  batch-level one (core/bfgs.BatchedDenseBFGS).
@@ -1709,7 +1719,7 @@ def run_multistart(
         raise ValueError(
             "checkpoint_every/resume_from with retry_budget > 0 snapshot the "
             "retry stream: its draws hook needs get_state() and set_state()")
-    opened = _open(f, x0, strategy, opts, device, retry_draws)
+    opened = _open(f, x0, strategy, opts, device, retry_draws, resume=resume_from)
     sweeper, x0 = opened.sweeper, opened.x0
     B = x0.shape[0]
     required_c = opts.required_c if opts.required_c is not None else B
@@ -1861,7 +1871,7 @@ def open_multistart(f: Callable, x0, strategy, opts: EngineOptions = EngineOptio
     same validation as run_multistart, and the cost model is refused: it
     needs the loop to itself."""
     check_engine_options(opts, hosted=True)
-    opened = _open(f, x0, strategy, opts, device, retry_draws)
+    opened = _open(f, x0, strategy, opts, device, retry_draws, entry="open_multistart")
     B, D = opened.x0.shape
     return HostedSolve(
         _sweeper=opened.sweeper, _start=opened.start, _x0=opened.x0, opts=opts, B=B,

@@ -34,19 +34,23 @@ def ladder_alphas(K: int, dtype, alpha0: float = 1.0,
 
 
 @functools.lru_cache(maxsize=None)
-def _device_ladder(K: int, alpha0: float, shrink: float,
-                   device: torch.device) -> torch.Tensor:
-    """ladder_alphas as a float32 tensor on `device`, copied there once per
-    (K, α₀, shrink, device) rather than on every sweep."""
-    return torch.as_tensor(ladder_alphas(K, np.float32, alpha0, shrink),
-                           device=device)
+def _device_ladder(K: int, alpha0: float, shrink: float, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """ladder_alphas in `dtype` as a tensor on `device` (the reference's
+    `ladder_alphas(K, X.dtype)`), copied there once per (K, α₀, shrink,
+    device, dtype) rather than on every sweep."""
+    npdt = np.float64 if dtype is torch.float64 else np.float32
+    return torch.as_tensor(ladder_alphas(K, npdt, alpha0, shrink), device=device)
 
 
-def exhaustion_alpha(K: int, alpha0: float = 1.0, shrink: float = 0.5) -> float:
+def exhaustion_alpha(K: int, alpha0: float = 1.0, shrink: float = 0.5,
+                     dtype=np.float32) -> float:
     """The α a lane takes when it accepts none of the K rungs: α_{K−1}·shrink
-    rounded in float32, as the sequential search's last halving and the
-    staged ladder's `alphas[-1] * shrink` round it."""
-    return float(ladder_alphas(K, np.float32, alpha0, shrink)[-1] * np.float32(shrink))
+    rounded in `dtype` (a numpy dtype; float32 unless given), as the
+    sequential search's last halving and the staged ladder's
+    `alphas[-1] * shrink` round it."""
+    npdt = np.dtype(dtype)
+    return float(ladder_alphas(K, npdt, alpha0, shrink)[-1] * npdt.type(shrink))
 
 
 def armijo_thresholds(F0: torch.Tensor, ddir: torch.Tensor,
@@ -64,7 +68,7 @@ def ladder_thresholds(F0: torch.Tensor, G0: torch.Tensor, P: torch.Tensor,
     adaptive ladder, the sweep megakernel) compares against this one
     computation, so all make the same accept decisions."""
     ddir = torch.sum(G0 * P, dim=-1)  # (B,) directional derivatives
-    alphas = _device_ladder(K, alpha0, shrink, P.device)
+    alphas = _device_ladder(K, alpha0, shrink, P.device, P.dtype)
     return alphas, armijo_thresholds(F0, ddir, alphas, c1)
 
 

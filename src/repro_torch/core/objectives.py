@@ -82,8 +82,10 @@ def sphere(x: torch.Tensor) -> torch.Tensor:
 # The CMS/ATLAS dijet parameterisation
 #   dN/dm = p0 · (1 - m/√s)^p1 / (m/√s)^(p2 + p3·log(m/√s)),
 # fitted in (log p0, p1, p2, p3) by the Poisson negative log-likelihood of
-# binned counts. Float32 throughout, the port's one dtype; the constants
-# of an NLL are copied to a device once, at its first call there.
+# binned counts, in the dtype of the parameters (float32 or float64; the
+# paper fits in float64): an NLL keeps its constants as float64 numpy and
+# casts them to a dtype, and copies them to a device, once, at its first
+# call in that dtype there.
 # ---------------------------------------------------------------------------
 SQRT_S = 13000.0  # GeV
 
@@ -104,19 +106,25 @@ def make_dijet_nll(bin_edges: np.ndarray, counts: np.ndarray) -> Callable:
     overflow to inf and the lane fails instead."""
     edges = np.asarray(bin_edges, np.float64)
     host = {
-        "centers": torch.tensor(0.5 * (edges[:-1] + edges[1:]), dtype=torch.float32),
-        "widths": torch.tensor(edges[1:] - edges[:-1], dtype=torch.float32),
-        "counts": torch.tensor(np.asarray(counts), dtype=torch.float32),
+        "centers": 0.5 * (edges[:-1] + edges[1:]),
+        "widths": edges[1:] - edges[:-1],
+        "counts": np.asarray(counts, np.float64),
     }
-    host["log_widths"] = torch.log(host["widths"])
     n_bins = host["centers"].shape[0]
-    on_device: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+    on_device: Dict[Tuple[torch.device, torch.dtype], Dict[str, torch.Tensor]] = {}
+
+    def constants(device, dtype):
+        # cast on the host, where the log of the widths is taken in `dtype`
+        # (as the reference takes it in its array dtype), then copied over
+        const = {k: torch.tensor(v, dtype=dtype) for k, v in host.items()}
+        const["log_widths"] = torch.log(const["widths"])
+        return {k: v.to(device) for k, v in const.items()}
 
     def nll(params: torch.Tensor) -> torch.Tensor:
-        const = on_device.get(params.device)
+        key = (params.device, params.dtype)
+        const = on_device.get(key)
         if const is None:
-            const = on_device[params.device] = {k: v.to(params.device)
-                                                for k, v in host.items()}
+            const = on_device[key] = constants(*key)
         logp0, p1, p2, p3 = (params[..., i, None] for i in range(4))
         xm = const["centers"] / SQRT_S
         log_mu = (logp0 + p1 * torch.log1p(-xm) - (p2 + p3 * torch.log(xm)) * torch.log(xm)
@@ -126,18 +134,18 @@ def make_dijet_nll(bin_edges: np.ndarray, counts: np.ndarray) -> Callable:
     return nll
 
 
-def simulate_dijet_counts(true_params, bin_edges: np.ndarray,
-                          seed: int = 0) -> np.ndarray:
+def simulate_dijet_counts(true_params, bin_edges: np.ndarray, seed: int = 0,
+                          dtype: torch.dtype = torch.float32) -> np.ndarray:
     """Poisson counts (float64) in the bins `bin_edges` at `true_params`:
-    μ = dijet_rate at the bin centres (float32, on the host) × the bin
-    widths, drawn by numpy's default_rng(seed).poisson as in the
-    reference."""
+    μ = dijet_rate at the bin centres (in `dtype`, on the host: float32, or
+    float64 as the reference computes it under x64) × the bin widths, drawn
+    by numpy's default_rng(seed).poisson as in the reference."""
     rng = np.random.default_rng(seed)
     edges = np.asarray(bin_edges, np.float64)
     centers = 0.5 * (edges[:-1] + edges[1:])
     widths = edges[1:] - edges[:-1]
-    rate = dijet_rate(torch.tensor(np.asarray(true_params), dtype=torch.float32),
-                      torch.tensor(centers, dtype=torch.float32))
+    rate = dijet_rate(torch.tensor(np.asarray(true_params), dtype=dtype),
+                      torch.tensor(centers, dtype=dtype))
     return rng.poisson(rate.numpy() * widths).astype(np.float64)
 
 

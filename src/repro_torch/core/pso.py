@@ -34,7 +34,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from repro_torch._device import resolve_device
+from repro_torch._device import check_dtype, resolve_device
 from repro_torch.kernels import ops as kernel_ops
 
 
@@ -43,11 +43,13 @@ class Draws(Protocol):
     """The random-draw hook (module docstring)."""
 
     def __call__(self, shape: Sequence[int], low: float, high: float) -> torch.Tensor:
-        """Uniform float32 draws in [low, high)."""
+        """Uniform draws in [low, high), in the solve's dtype (float32 or
+        float64; the swarm casts other draws to it)."""
         ...
 
     def normal(self, shape: Sequence[int]) -> torch.Tensor:
-        """Standard-normal float32 draws (the mean-field swarm only)."""
+        """Standard-normal draws in the solve's dtype (the mean-field swarm
+        and the retry stream only)."""
         ...
 
 
@@ -71,24 +73,26 @@ class SwarmState(NamedTuple):
 
 
 class TorchDraws:
-    """The default draws hook: uniform float32 draws from a torch.Generator
-    on `device` (seeded with `seed` unless a generator is given)."""
+    """The default draws hook: uniform draws in `dtype` (float32 unless
+    given) from a torch.Generator on `device` (seeded with `seed` unless a
+    generator is given)."""
 
     def __init__(self, device, generator: Optional[torch.Generator] = None,
-                 seed: int = 0):
+                 seed: int = 0, dtype: torch.dtype = torch.float32):
         self.device = torch.device(device)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
         self.generator = generator
+        self.dtype = dtype
 
     def __call__(self, shape, low: float, high: float) -> torch.Tensor:
         u = torch.rand(tuple(shape), generator=self.generator,
-                       device=self.device, dtype=torch.float32)
+                       device=self.device, dtype=self.dtype)
         return low + (high - low) * u
 
     def normal(self, shape) -> torch.Tensor:
         return torch.randn(tuple(shape), generator=self.generator,
-                           device=self.device, dtype=torch.float32)
+                           device=self.device, dtype=self.dtype)
 
     def get_state(self) -> torch.Tensor:
         """The generator's state (a CPU uint8 tensor): what a solve's
@@ -108,11 +112,12 @@ def _global_best(x, fvals, gx, gf):
 
 
 def init_swarm(f: Callable, draws: Draws, n: int, dim: int, lower: float,
-               upper: float, device) -> SwarmState:
-    """Alg. 2/8: uniform positions in [lower, upper], velocities in ±range."""
+               upper: float, device, dtype=torch.float32) -> SwarmState:
+    """Alg. 2/8: uniform positions in [lower, upper], velocities in ±range,
+    in `dtype`."""
     vel_range = upper - lower
-    x = draws((n, dim), lower, upper).to(device)
-    v = draws((n, dim), -vel_range, vel_range).to(device)
+    x = draws((n, dim), lower, upper).to(device, dtype)
+    v = draws((n, dim), -vel_range, vel_range).to(device, dtype)
     pf = vmap(f)(x)
     inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
     gx, gf = _global_best(x, pf, x[0], inf)
@@ -123,8 +128,8 @@ def pso_step(f: Callable, state: SwarmState, opts: PSOOptions, draws: Draws,
              lower: float, upper: float) -> SwarmState:
     """Alg. 3/9: velocity/position update + personal/global best refresh."""
     n, dim = state.x.shape
-    r1 = draws((n, dim), 0.0, 1.0).to(state.x.device)
-    r2 = draws((n, dim), 0.0, 1.0).to(state.x.device)
+    r1 = draws((n, dim), 0.0, 1.0).to(state.x.device, state.x.dtype)
+    r2 = draws((n, dim), 0.0, 1.0).to(state.x.device, state.x.dtype)
     x, v = kernel_ops.pso_step_update(
         state.x, state.v, state.px, state.gx, r1, r2, opts.w, opts.c1, opts.c2)
     if opts.clip_to_range:
@@ -141,19 +146,23 @@ def pso_step(f: Callable, state: SwarmState, opts: PSOOptions, draws: Draws,
 def run_pso(f: Callable, dim: int, lower: float, upper: float,
             opts: PSOOptions = PSOOptions(), *, device="cuda",
             draws: Optional[Draws] = None,
-            generator: Optional[torch.Generator] = None) -> SwarmState:
+            generator: Optional[torch.Generator] = None,
+            dtype: torch.dtype = torch.float32) -> SwarmState:
     """Phase 1 of ZEUS: init + iter_pso synchronous swarm iterations.
 
     f:      scalar objective `(dim,) -> ()` in torch, vmapped over the swarm.
     device: "cuda" (default) or "cpu"; no silent CPU fallback.
     draws:  the random-draw hook (module docstring); by default
-            TorchDraws(device, generator).
+            TorchDraws(device, generator, dtype=dtype).
+    dtype:  float32 or float64: the swarm's positions, velocities and bests
+            (and B4's w, c1 and c2, rounded to it).
     Returns the final SwarmState: `.x` is the phase-2 start set, `.gf/.gx`
     the global best."""
     dev = resolve_device(device)
+    dtype = check_dtype(dtype)
     if draws is None:
-        draws = TorchDraws(dev, generator)
-    state = init_swarm(f, draws, opts.n_particles, dim, lower, upper, dev)
+        draws = TorchDraws(dev, generator, dtype=dtype)
+    state = init_swarm(f, draws, opts.n_particles, dim, lower, upper, dev, dtype)
     for _ in range(opts.iter_pso):
         state = pso_step(f, state, opts, draws, lower, upper)
     return state

@@ -27,7 +27,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch._device import check_dtype, resolve_device
+from repro_torch._device import check_dtype, refuse_float64, resolve_device
 from repro_torch.core import engine as engine_mod
 from repro_torch.core.bfgs import BFGSOptions, BFGSResult, serial_bfgs
 from repro_torch.core.engine import CONVERGED, get_solver, run_multistart
@@ -49,7 +49,9 @@ class ZeusOptions:
     # skips phase 1 whichever is chosen
     phase1: str = "pso"
     meanfield: MeanFieldPSOOptions = MeanFieldPSOOptions()
-    dtype: str = "float32"  # the only dtype the port supports
+    # "float32" or "float64" (phase 1 and phase 2 in that dtype; float64 runs
+    # PSO and dense BFGS on the batched sweep, the rest is ROADMAP A19b)
+    dtype: str = "float32"
     solver: str = "bfgs"  # phase-2 strategy name in the engine registry
     lane_chunk: Optional[int] = None  # overrides the solver opts' lane_chunk
     # overrides of the solver opts' engine knobs (None keeps the solver's)
@@ -91,11 +93,12 @@ class ZeusResult(NamedTuple):
 
 
 def uniform_starts(draws: Draws, n: int, dim: int, lower: float, upper: float,
-                   device):
-    """use_pso=False: n uniform starts in the box; inf stands in for the
-    absent PSO global best. (The reference splits its key and draws from
-    the second half, so that the starts differ from a swarm init's x₀.)"""
-    starts = draws((n, dim), lower, upper).to(device)
+                   device, dtype=torch.float32):
+    """use_pso=False: n uniform starts in the box, in `dtype`; inf stands in
+    for the absent PSO global best. (The reference splits its key and draws
+    from the second half, so that the starts differ from a swarm init's
+    x₀.)"""
+    starts = draws((n, dim), lower, upper).to(device, dtype)
     return starts, torch.tensor(float("inf"), dtype=starts.dtype,
                                 device=starts.device)
 
@@ -109,19 +112,21 @@ def phase1_particles(opts: ZeusOptions) -> int:
 
 
 def run_phase1(f, dim, lower, upper, opts: ZeusOptions, draws: Draws, device):
-    """Phase 1: returns (starts, best_f_seen) for phase 2."""
+    """Phase 1: returns (starts, best_f_seen) for phase 2, in opts.dtype."""
     if opts.phase1 not in PHASE1_STRATEGIES:
         raise ValueError(
             f"unknown phase1 strategy {opts.phase1!r}; expected one of "
             f"{PHASE1_STRATEGIES}")
+    dtype = check_dtype(opts.dtype)
     if not opts.use_pso:
         return uniform_starts(draws, phase1_particles(opts), dim, lower, upper,
-                              device)
+                              device, dtype)
     if opts.phase1 == "meanfield":
         mf = run_meanfield_pso(f, dim, lower, upper, opts.meanfield,
                                device=device, draws=draws)
         return mf.x, mf.gf
-    swarm = run_pso(f, dim, lower, upper, opts.pso, device=device, draws=draws)
+    swarm = run_pso(f, dim, lower, upper, opts.pso, device=device, draws=draws,
+                    dtype=dtype)
     return swarm.x, swarm.gf
 
 
@@ -226,14 +231,17 @@ def zeus(
     retry_draws: phase 2's retry stream; None is a second generator on
                `device`, seeded from phase 1's generator (seed 0 without
                one) and `_RETRY_FOLD`."""
-    check_dtype(opts.dtype)
+    dtype = check_dtype(opts.dtype)
+    refuse_float64(dtype, phase2_setup(opts)[1], solver=_solver_name(opts),
+                   phase1=opts.phase1 if opts.use_pso else "pso", resume=resume)
     dev = resolve_device(device)
     if draws is None:
-        draws = TorchDraws(dev, generator)
+        draws = TorchDraws(dev, generator, dtype=dtype)
     if retry_draws is None:
         base = getattr(draws, "generator", None)
         seed = base.initial_seed() if base is not None else 0
-        retry_draws = TorchDraws(dev, seed=(seed ^ _RETRY_FOLD) & (2**63 - 1))
+        retry_draws = TorchDraws(dev, seed=(seed ^ _RETRY_FOLD) & (2**63 - 1),
+                                 dtype=dtype)
     starts, pso_best_f = run_phase1(f, dim, lower, upper, opts, draws, dev)
     res = solve_phase2(f, starts, opts, device=dev, retry_draws=retry_draws,
                        bounds=(lower, upper), resume_from=resume)
@@ -304,7 +312,7 @@ def sequential_zeus(f: Callable, seed: int, dim: int, lower: float, upper: float
         raise ValueError(
             "sequential_zeus is the paper's Alg. 1 baseline and only runs "
             f"phase1='pso'; use zeus() for phase1={opts.phase1!r}")
-    check_dtype(opts.dtype)
+    refuse_float64(opts.dtype, entry="sequential_zeus")
     dev = resolve_device(device)
     t0 = time.perf_counter()
     if opts.use_pso and opts.pso.iter_pso > 0:

@@ -39,10 +39,9 @@ def _field(obj: Any, name: str, default=_MISSING):
 
 
 def _tensor(a, device) -> torch.Tensor:
-    arr = np.asarray(a)
-    if arr.dtype == np.float64:
-        raise TypeError("float64 state: the port supports float32 only")
-    return torch.from_numpy(np.array(arr, order="C")).to(device)
+    """An array as a tensor of its own dtype (float64 state, the
+    reference's under x64, stays float64) on `device`."""
+    return torch.from_numpy(np.array(np.asarray(a), order="C")).to(device)
 
 
 def swarm_state_from_numpy(state, device="cpu") -> SwarmState:

@@ -50,16 +50,25 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # Launch functions (all return cudaError_t): name -> (source stem, C
-# argument types).
+# argument types). A name ending in F64 is the float64 instantiation of the
+# name without it (`symbol`).
+F64 = "_f64"
 SIGNATURES = {
     "fused_obj_launch": ("fused_obj", [_I, _I, _P, _P, _P, _I, _I, _P]),
+    "fused_obj_launch" + F64: ("fused_obj", [_I, _I, _P, _P, _P, _I, _I, _P]),
     "fused_obj_trig_check_launch": ("fused_obj", [_P, _P]),
     "pso_step_launch": ("pso_step",
                         [_P, _P, _P, _P, _P, _P, _F, _F, _F, _P, _P, _I, _I, _P]),
+    "pso_step_launch" + F64: ("pso_step",
+                              [_P, _P, _P, _P, _P, _P, _D, _D, _D, _P, _P, _I, _I, _P]),
     "direction_launch": ("direction", [_P, _P, _P, _I, _I, _P]),
+    "direction_launch" + F64: ("direction", [_P, _P, _P, _I, _I, _P]),
     "guarded_update_direction_launch": ("bfgs_update",
                                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "guarded_update_direction_launch" + F64: ("bfgs_update",
+                                              [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
     "bfgs_update_launch": ("bfgs_update", [_P, _P, _P, _P, _I, _I, _P]),
     "update_direction_launch": ("bfgs_update",
                                 [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
@@ -146,6 +155,18 @@ def library(stem: str) -> ctypes.CDLL:
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def symbol(op: str, name: str, dtype) -> str:
+    """The launch function of `name` for elements of `dtype`: `name` for
+    float32, its float64 instantiation for float64 where SIGNATURES has one;
+    TypeError for any other dtype, before anything launches."""
+    if dtype is torch.float32:
+        return name
+    if dtype is torch.float64 and name + F64 in SIGNATURES:
+        return name + F64
+    have = "float32 or float64" if name + F64 in SIGNATURES else "float32"
+    raise TypeError(f"{op}: the kernel takes {have} (got {dtype})")
 
 
 def check_tensor(op: str, arg: str, t, shape, device=None,

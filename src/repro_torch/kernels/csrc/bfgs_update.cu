@@ -47,6 +47,12 @@
 //     update;
 //   streaming above that: one block of eight warps per lane, block_hdg and
 //     block_update_rows reading H from device memory, 12·D² bytes a lane.
+// float64 (guarded_update_direction_launch_f64, B2 only): the kernel is a
+// template on the element type, and the double instantiation runs the same
+// three variants on doubles: the small one unchanged in threads (its
+// shared arrays twice the bytes), the single read while (D² + 4·D)·8 + 128
+// <= 232,448 (D <= 168, ops.update_smem_dim(float64)), with 8-byte cp.async
+// where the bulk copy cannot run, and streaming above.
 // The row sums and the entries of H' are update.cuh's in every variant
 // (lane j of a row's threads adds columns j, j + 32, …, then a butterfly;
 // updated_entry for each entry), so each lane's H' and p' do not depend on
@@ -71,9 +77,10 @@ constexpr long long kSmemScalars = 128;      // bound on the static __shared__ s
 enum Mode : int { kGuarded = 0, kUpdate = 1, kUpdateDirection = 2 };
 
 // whether a lane's H fits in the block's shared memory beside the four
-// vectors (ops.update_smem_dim: the largest such D)
+// vectors, in elements of T (ops.update_smem_dim: the largest such D)
+template <typename T>
 __host__ __device__ constexpr bool h_fits_smem(long long D) {
-  return (D * D + 4 * D) * 4 + kSmemScalars <= kSmemPerBlock;
+  return (D * D + 4 * D) * static_cast<long long>(sizeof(T)) + kSmemScalars <= kSmemPerBlock;
 }
 
 // rows of a panel: a multiple of 4, so that every panel of an even D is a
@@ -82,26 +89,27 @@ __host__ __device__ constexpr int panel_rows(int D) {
   return 4 * ((D + 4 * kPanels - 1) / (4 * kPanels));
 }
 
+template <typename T>
 struct UpdateArgs {
-  const float* H;
-  const float* dx;
-  const float* dg;
-  const float* g_new;
-  const float* rho;
-  float* H_out;
-  float* p_out;
+  const T* H;
+  const T* dx;
+  const T* dg;
+  const T* g_new;
+  const T* rho;
+  T* H_out;
+  T* p_out;
   int B, D;
   int bulk;  // single-read variant: 1 to copy H with bulk copies, 0 with cp.async
 };
 
 // Small D: warp w of block k takes lane 8k + w; P threads a row.
-template <int MODE, int P>
-__global__ void __launch_bounds__(kWarps * kWarp) bfgs_update_small(const UpdateArgs a) {
+template <typename T, int MODE, int P>
+__global__ void __launch_bounds__(kWarps * kWarp) bfgs_update_small(const UpdateArgs<T> a) {
   constexpr bool kDirection = MODE != kUpdate;
   constexpr int G = kWarp / P;              // rows a warp takes at a time
   constexpr int NR = (P + G - 1) / G;       // steps of G rows to cover P rows
-  __shared__ float s_u[kWarps][P];
-  __shared__ float s_dx[kWarps][P];
+  __shared__ T s_u[kWarps][P];
+  __shared__ T s_dx[kWarps][P];
 
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
@@ -111,16 +119,16 @@ __global__ void __launch_bounds__(kWarps * kWarp) bfgs_update_small(const Update
   const int j = lane % P;   // the column this thread holds
   const int gi = lane / P;  // its row in each step of G rows
   const bool col = j < D;
-  const float* Hb = a.H + b * D * D;
-  const float dxj = col ? a.dx[b * D + j] : 0.0f;
-  const float dgj = col ? a.dg[b * D + j] : 0.0f;
-  const float gnj = kDirection && col ? a.g_new[b * D + j] : 0.0f;
-  const float rho_in = MODE == kGuarded ? a.rho[b] : 0.0f;  // loads issued up front
-  float h[NR];
+  const T* Hb = a.H + b * D * D;
+  const T dxj = col ? a.dx[b * D + j] : T(0);
+  const T dgj = col ? a.dg[b * D + j] : T(0);
+  const T gnj = kDirection && col ? a.g_new[b * D + j] : T(0);
+  const T rho_in = MODE == kGuarded ? a.rho[b] : T(0);  // loads issued up front
+  T h[NR];
 #pragma unroll
   for (int r = 0; r < NR; ++r) {
     const int i = r * G + gi;
-    h[r] = col && i < D ? Hb[i * D + j] : 0.0f;
+    h[r] = col && i < D ? Hb[i * D + j] : T(0);
   }
   if (gi == 0) s_dx[warp][j] = dxj;
 
@@ -128,36 +136,35 @@ __global__ void __launch_bounds__(kWarps * kWarp) bfgs_update_small(const Update
 #pragma unroll
   for (int r = 0; r < NR; ++r) {
     if (r * G >= D) break;  // uniform over the warp
-    float acc = 0.0f;
+    T acc = T(0);
     acc += h[r] * dgj;
     acc = repro::group_sum(acc, P);
     const int i = r * G + gi;
     if (j == 0 && i < D) s_u[warp][i] = acc;
   }
   __syncwarp();
-  const float uj = col ? s_u[warp][j] : 0.0f;
-  float acc = 0.0f;
+  const T uj = col ? s_u[warp][j] : T(0);
+  T acc = T(0);
   acc += dgj * uj;
-  const float s = repro::group_sum(acc, P);
-  float rho = rho_in;
+  const T s = repro::group_sum(acc, P);
+  T rho = rho_in;
   if (MODE != kGuarded) {
-    float c = 0.0f;
+    T c = T(0);
     c += dxj * dgj;
-    rho = 1.0f / repro::group_sum(c, P);
+    rho = T(1) / repro::group_sum(c, P);
   }
-  const float coef = rho * rho * s + rho;
+  const T coef = rho * rho * s + rho;
 
-  float* Ob = a.H_out + b * D * D;
+  T* Ob = a.H_out + b * D * D;
 #pragma unroll
   for (int r = 0; r < NR; ++r) {
     if (r * G >= D) break;
     const int i = r * G + gi;
     const int ic = min(i, D - 1);
-    const float hn = repro::updated_entry(h[r], s_u[warp][ic], s_dx[warp][ic], uj, dxj,
-                                          rho, coef);
+    const T hn = repro::updated_entry(h[r], s_u[warp][ic], s_dx[warp][ic], uj, dxj, rho, coef);
     if (col && i < D) Ob[i * D + j] = hn;
     if (kDirection) {
-      float pacc = 0.0f;
+      T pacc = T(0);
       if (col) pacc += hn * gnj;
       pacc = repro::group_sum(pacc, P);
       if (j == 0 && i < D) a.p_out[b * D + i] = -pacc;
@@ -167,18 +174,19 @@ __global__ void __launch_bounds__(kWarps * kWarp) bfgs_update_small(const Update
 
 // The two block variants: one block of eight warps per lane, H from its
 // shared-memory copy (SMEM_H) or streamed from device memory.
-template <int MODE, bool SMEM_H>
-__global__ void __launch_bounds__(kWarps * kWarp) bfgs_update_block(const UpdateArgs a) {
+template <typename T, int MODE, bool SMEM_H>
+__global__ void __launch_bounds__(kWarps * kWarp) bfgs_update_block(const UpdateArgs<T> a) {
   constexpr bool kDirection = MODE != kUpdate;
   const int D = a.D;
-  extern __shared__ __align__(16) float smem[];
-  float* sH = smem;  // the lane's H, single-read variant only
-  float* sdx = SMEM_H ? smem + D * D : smem;
-  float* sdg = sdx + D;
-  float* sgn = sdg + D;
-  float* su = sgn + D;
-  __shared__ float s_dot;
-  __shared__ float s_curv;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  T* sH = smem;  // the lane's H, single-read variant only
+  T* sdx = SMEM_H ? smem + D * D : smem;
+  T* sdg = sdx + D;
+  T* sgn = sdg + D;
+  T* su = sgn + D;
+  __shared__ T s_dot;
+  __shared__ T s_curv;
   __shared__ __align__(8) uint64_t s_panel[kPanels];
 
   const long long b = blockIdx.x;
@@ -186,8 +194,8 @@ __global__ void __launch_bounds__(kWarps * kWarp) bfgs_update_block(const Update
   const int warp = threadIdx.x / kWarp;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
-  const float* Hb = a.H + b * D * D;
-  const float rho_in = MODE == kGuarded ? a.rho[b] : 0.0f;  // loads issued up front
+  const T* Hb = a.H + b * D * D;
+  const T rho_in = MODE == kGuarded ? a.rho[b] : T(0);  // loads issued up front
   const int rows = panel_rows(D);
   const int npanels = (D + rows - 1) / rows;
 
@@ -198,7 +206,8 @@ __global__ void __launch_bounds__(kWarps * kWarp) bfgs_update_block(const Update
         repro::mbar_fence_init();
         for (int q = 0; q < npanels; ++q) {
           const long long off = static_cast<long long>(q) * rows * D;
-          const uint32_t bytes = static_cast<uint32_t>(min(rows, D - q * rows)) * D * 4;
+          const uint32_t bytes =
+              static_cast<uint32_t>(min(rows, D - q * rows)) * D * static_cast<uint32_t>(sizeof(T));
           repro::mbar_arrive_expect_tx(&s_panel[q], bytes);
           repro::bulk_load(sH + off, Hb + off, bytes, &s_panel[q]);
         }
@@ -211,7 +220,11 @@ __global__ void __launch_bounds__(kWarps * kWarp) bfgs_update_block(const Update
       for (int q = 0; q < npanels; ++q) {
         const int end = min(q * rows + rows, D) * D;
         for (int e = q * rows * D + tid; e < end; e += nthreads) {
-          repro::cp_async_4(sH + e, Hb + e);
+          if constexpr (sizeof(T) == 8) {
+            repro::cp_async_8(sH + e, Hb + e);
+          } else {
+            repro::cp_async_4(sH + e, Hb + e);
+          }
         }
         repro::cp_async_mbar_arrive(&s_panel[q]);
       }
@@ -238,16 +251,16 @@ __global__ void __launch_bounds__(kWarps * kWarp) bfgs_update_block(const Update
   __syncthreads();
 
   if (warp == 0) {
-    const float s = repro::warp_dot(sdg, su, D, lane);
+    const T s = repro::warp_dot(sdg, su, D, lane);
     if (lane == 0) s_dot = s;
   } else if (MODE != kGuarded && warp == 1) {
-    const float c = repro::warp_dot(sdx, sdg, D, lane);
+    const T c = repro::warp_dot(sdx, sdg, D, lane);
     if (lane == 0) s_curv = c;
   }
   __syncthreads();
 
-  const float rho = MODE == kGuarded ? rho_in : 1.0f / s_curv;
-  const float coef = rho * rho * s_dot + rho;
+  const T rho = MODE == kGuarded ? rho_in : T(1) / s_curv;
+  const T coef = rho * rho * s_dot + rho;
 
   // pass 2: H' rows (and p' = −H' g'); from shared memory four rows a warp
   // at a time, where the pass is latency-bound
@@ -257,8 +270,8 @@ __global__ void __launch_bounds__(kWarps * kWarp) bfgs_update_block(const Update
       kDirection ? a.p_out + b * D : nullptr, D, warp, lane, kWarps);
 }
 
-template <typename Kernel>
-int launch_kernel(Kernel kernel, const UpdateArgs& a, int blocks, size_t smem,
+template <typename Kernel, typename T>
+int launch_kernel(Kernel kernel, const UpdateArgs<T>& a, int blocks, size_t smem,
                   cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -269,24 +282,26 @@ int launch_kernel(Kernel kernel, const UpdateArgs& a, int blocks, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MODE>
-int launch(UpdateArgs a, cudaStream_t stream) {
+template <int MODE, typename T>
+int launch(UpdateArgs<T> a, cudaStream_t stream) {
   if (a.B <= 0 || a.D <= 0) return 0;
   const int D = a.D;
   if (D <= kSmallMaxDim) {
     const int blocks = (a.B + kWarps - 1) / kWarps;
-    if (D <= 4) return launch_kernel(bfgs_update_small<MODE, 4>, a, blocks, 0, stream);
-    if (D <= 8) return launch_kernel(bfgs_update_small<MODE, 8>, a, blocks, 0, stream);
-    if (D <= 16) return launch_kernel(bfgs_update_small<MODE, 16>, a, blocks, 0, stream);
-    return launch_kernel(bfgs_update_small<MODE, 32>, a, blocks, 0, stream);
+    if (D <= 4) return launch_kernel(bfgs_update_small<T, MODE, 4>, a, blocks, 0, stream);
+    if (D <= 8) return launch_kernel(bfgs_update_small<T, MODE, 8>, a, blocks, 0, stream);
+    if (D <= 16) return launch_kernel(bfgs_update_small<T, MODE, 16>, a, blocks, 0, stream);
+    return launch_kernel(bfgs_update_small<T, MODE, 32>, a, blocks, 0, stream);
   }
-  const size_t vectors = 4 * static_cast<size_t>(D) * sizeof(float);
-  if (h_fits_smem(D)) {
+  const size_t vectors = 4 * static_cast<size_t>(D) * sizeof(T);
+  if (h_fits_smem<T>(D)) {
+    // every lane's H and every panel start on a 16-byte boundary: an even D
+    // (D²·sizeof(T) a multiple of 16) and an aligned base
     a.bulk = D % 2 == 0 && reinterpret_cast<uintptr_t>(a.H) % 16 == 0;
-    const size_t smem = static_cast<size_t>(D) * D * sizeof(float) + vectors;
-    return launch_kernel(bfgs_update_block<MODE, true>, a, a.B, smem, stream);
+    const size_t smem = static_cast<size_t>(D) * D * sizeof(T) + vectors;
+    return launch_kernel(bfgs_update_block<T, MODE, true>, a, a.B, smem, stream);
   }
-  return launch_kernel(bfgs_update_block<MODE, false>, a, a.B, vectors, stream);
+  return launch_kernel(bfgs_update_block<T, MODE, false>, a, a.B, vectors, stream);
 }
 
 }  // namespace
@@ -298,15 +313,26 @@ extern "C" int guarded_update_direction_launch(const float* H, const float* dx,
                                                const float* rho, float* H_out,
                                                float* p_out, int B, int D,
                                                cudaStream_t stream) {
-  return launch<kGuarded>(UpdateArgs{H, dx, dg, g_new, rho, H_out, p_out, B, D, 0},
-                          stream);
+  return launch<kGuarded>(
+      UpdateArgs<float>{H, dx, dg, g_new, rho, H_out, p_out, B, D, 0}, stream);
+}
+
+// The guarded update in float64 (B2's double instantiation); the unguarded
+// two stay float32.
+extern "C" int guarded_update_direction_launch_f64(const double* H, const double* dx,
+                                                   const double* dg, const double* g_new,
+                                                   const double* rho, double* H_out,
+                                                   double* p_out, int B, int D,
+                                                   cudaStream_t stream) {
+  return launch<kGuarded>(
+      UpdateArgs<double>{H, dx, dg, g_new, rho, H_out, p_out, B, D, 0}, stream);
 }
 
 // Unguarded, ρ = 1/(δxᵀδg) per lane -> H_out (B, D, D).
 extern "C" int bfgs_update_launch(const float* H, const float* dx, const float* dg,
                                   float* H_out, int B, int D, cudaStream_t stream) {
-  return launch<kUpdate>(UpdateArgs{H, dx, dg, nullptr, nullptr, H_out, nullptr, B, D, 0},
-                         stream);
+  return launch<kUpdate>(
+      UpdateArgs<float>{H, dx, dg, nullptr, nullptr, H_out, nullptr, B, D, 0}, stream);
 }
 
 // Unguarded, with g_new (B, D) -> H_out (B, D, D), p_out (B, D).
@@ -314,5 +340,5 @@ extern "C" int update_direction_launch(const float* H, const float* dx, const fl
                                        const float* g_new, float* H_out, float* p_out,
                                        int B, int D, cudaStream_t stream) {
   return launch<kUpdateDirection>(
-      UpdateArgs{H, dx, dg, g_new, nullptr, H_out, p_out, B, D, 0}, stream);
+      UpdateArgs<float>{H, dx, dg, g_new, nullptr, H_out, p_out, B, D, 0}, stream);
 }

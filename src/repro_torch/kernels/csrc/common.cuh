@@ -16,8 +16,10 @@ constexpr int kWarp = 32;
 // Butterfly sum over the 32 lanes of a warp. IEEE addition is commutative,
 // so both lanes of every exchanged pair hold the same bits after each step:
 // every lane ends with the identical sum, and the order of additions
-// depends only on the lane layout, never on the batch size.
-__device__ __forceinline__ float warp_sum(float v) {
+// depends only on the lane layout, never on the batch size. T is float or
+// double.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int offset = kWarp / 2; offset > 0; offset >>= 1) {
     v += __shfl_xor_sync(kFullMask, v, offset);
@@ -28,7 +30,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 // The same butterfly within aligned groups of `width` lanes (a power of two
 // up to 32): every lane ends with its group's sum. All 32 lanes must call
 // it, since the shuffles name the full warp.
-__device__ __forceinline__ float group_sum(float v, int width) {
+template <typename T>
+__device__ __forceinline__ T group_sum(T v, int width) {
   for (int offset = width / 2; offset > 0; offset >>= 1) {
     v += __shfl_xor_sync(kFullMask, v, offset);
   }

@@ -67,6 +67,17 @@
 // columns), which the sweep megakernel (sweep_megakernel.cu) runs too, on a
 // whole warp, with the same bits (objective.cuh). No cross-block state.
 //
+// float64 (fused_obj_launch_f64): every kernel is a template on the element
+// type T, and the double instantiations run the same variants with T =
+// double. A stage and a row tile keep their 16 KB (2048 doubles), so the
+// staged variant's tiles hold half the rows of float32's at a D, its pad is
+// 16 bytes (2 doubles) and its ring fits to D = 907
+// (ops.fused_obj_staged_max_dim(float64)); a bulk copy moves 16-byte units
+// of 2 doubles, with at most one double at each unaligned edge (a view 8
+// bytes past a 16-byte boundary). A double row takes cos, sin, exp and sqrt
+// in double on the plain version's formula, cos(2π·x); trig_fast_path is
+// float's alone.
+//
 // Exactness: the value-only instantiation (WITH_GRAD = false) must return
 // f bitwise equal to the value+grad instantiation, because the Armijo test
 // compares ladder values from one against F0 from the other. Both take the
@@ -87,9 +98,9 @@ using repro::kSphere;
 using repro::kWarp;
 
 constexpr int kThreads = 256;
-// A block of the row-group kernel stages kLoads floats a thread.
+// A block of the row-group kernel stages kLoads elements a thread.
 constexpr int kLoads = 8;
-constexpr int kTileFloats = kThreads * kLoads;
+constexpr int kTileFloats = kThreads * kLoads;  // elements, of either type
 
 // The staged ring (ops.fused_obj_tile_rows, fused_obj_stages and
 // fused_obj_staged_max_dim state the same rule).
@@ -116,20 +127,26 @@ int row_threads(int D) {
   return P;
 }
 
+// Elements of T in 16 bytes: the unit of a bulk copy, and a stage's pad.
+template <typename T>
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+
 // The staged variant's ring at D: R rows a tile (a multiple of 16, about
-// kTileBytes a tile, 16 to 64) and S stages of R·D + 4 floats (as many as
-// fit, at most 4), behind the barriers; stages < kMinStages where even the
-// smallest ring does not fit, and then D takes the direct variant.
+// kTileBytes a tile, 16 to 64) and S stages of R·D + kVec<T> elements (as
+// many as fit, at most 4), behind the barriers; stages < kMinStages where
+// even the smallest ring does not fit, and then D takes the direct variant.
 struct Ring {
   int rows;
   int stages;
   int smem;  // bytes
 };
 
+template <typename T>
 Ring ring(int D) {
-  int R = kTileBytes / 4 / D / kMinTileRows * kMinTileRows;
+  constexpr int kSize = static_cast<int>(sizeof(T));
+  int R = kTileBytes / kSize / D / kMinTileRows * kMinTileRows;
   R = R < kMinTileRows ? kMinTileRows : (R > kMaxTileRows ? kMaxTileRows : R);
-  const long long stage_bytes = (static_cast<long long>(R) * D + 4) * 4;
+  const long long stage_bytes = (static_cast<long long>(R) * D + kVec<T>) * kSize;
   const long long fit = (kSmemPerBlock - kBarrierBytes) / stage_bytes;
   const int S = static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
   return Ring{R, S, static_cast<int>(kBarrierBytes + S * stage_bytes)};
@@ -137,19 +154,19 @@ Ring ring(int D) {
 
 // D <= 16: rows in aligned groups of P < 32 lanes, kTileFloats / P rows a
 // block staged through shared memory (the design note above).
-template <int OBJ, bool WITH_GRAD, int P>
+template <typename T, int OBJ, bool WITH_GRAD, int P>
 __global__ void __launch_bounds__(kThreads)
-fused_obj_rows_kernel(const float* __restrict__ x, float* __restrict__ f,
-                      float* __restrict__ g, int N, int D) {
+fused_obj_rows_kernel(const T* __restrict__ x, T* __restrict__ f, T* __restrict__ g, int N,
+                      int D) {
   constexpr int kRows = kTileFloats / P;
   constexpr int kRowsPerPass = kThreads / P;
-  __shared__ float tile[kTileFloats];
-  __shared__ float sf[kRows];
+  __shared__ T tile[kTileFloats];
+  __shared__ T sf[kRows];
   const long long block_row = static_cast<long long>(blockIdx.x) * kRows;
   const long long left = N - block_row;
   const int rows = left < kRows ? static_cast<int>(left) : kRows;
   const int n = rows * D;
-  const float* xb = x + block_row * D;
+  const T* xb = x + block_row * D;
 #pragma unroll
   for (int i = 0; i < kLoads; ++i) {
     const int k = threadIdx.x + i * kThreads;
@@ -164,9 +181,9 @@ fused_obj_rows_kernel(const float* __restrict__ x, float* __restrict__ f,
   // full-warp shuffles) and stores nothing
   const auto pass = [&](int r) {
     const bool owner = r < rows;
-    const float* xr = tile + (owner ? r : rows - 1) * D;
-    float e1 = 0.0f, s1 = 0.0f, e2 = 0.0f;
-    const float fv = repro::row_value<OBJ, P>(xr, D, lane, &e1, &s1, &e2);
+    const T* xr = tile + (owner ? r : rows - 1) * D;
+    T e1 = T(0), s1 = T(0), e2 = T(0);
+    const T fv = repro::row_value<OBJ, P>(xr, D, lane, &e1, &s1, &e2);
     if (owner) {
       if (lane == 0) sf[r] = fv;
       if (WITH_GRAD) {
@@ -191,20 +208,23 @@ fused_obj_rows_kernel(const float* __restrict__ x, float* __restrict__ f,
 
 // D >= 17 while the ring fits: persistent blocks, rows staged through a
 // ring of shared-memory stages by bulk copies (the design note above).
-template <int OBJ, bool WITH_GRAD>
+template <typename T, int OBJ, bool WITH_GRAD>
 __global__ void __launch_bounds__(kStagedThreads, kMaxBlocksPerSM)
-fused_obj_staged_kernel(const float* __restrict__ x, float* __restrict__ f,
-                        float* __restrict__ g, int N, int D, int R, int S) {
+fused_obj_staged_kernel(const T* __restrict__ x, T* __restrict__ f, T* __restrict__ g, int N,
+                        int D, int R, int S) {
+  constexpr int V = kVec<T>;  // elements a 16-byte unit
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
   uint64_t* empty = full + kMaxStages;
-  float* stages = reinterpret_cast<float*>(smem_raw + kBarrierBytes);
-  const long long stage_floats = static_cast<long long>(R) * D + 4;
+  T* stages = reinterpret_cast<T*>(smem_raw + kBarrierBytes);
+  const long long stage_floats = static_cast<long long>(R) * D + V;
   const long long ntiles = (static_cast<long long>(N) + R - 1) / R;
   const int my_tiles = static_cast<int>((ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x);
-  // x's offset from the 16-byte boundary below it, in floats; every tile
-  // starts at the same offset, R·D·4 being a multiple of 16
-  const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(x) >> 2) & 3);
+  // x's offset from the 16-byte boundary below it, in elements; every tile
+  // starts at the same offset, R·D·sizeof(T) being a multiple of 16 (R is a
+  // multiple of 16)
+  const int mis =
+      static_cast<int>((reinterpret_cast<uintptr_t>(x) / sizeof(T)) & (V - 1));
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (threadIdx.x == 0) {
@@ -223,30 +243,29 @@ fused_obj_staged_kernel(const float* __restrict__ x, float* __restrict__ f,
         const long long row0 = (blockIdx.x + static_cast<long long>(k) * gridDim.x) * R;
         const long long left = N - row0;
         const int n = static_cast<int>(left < R ? left : R) * D;
-        const float* src = x + row0 * D;
-        const int head = min(n, (4 - mis) & 3);
-        const int body = (n - head) & ~3;
+        const T* src = x + row0 * D;
+        const int head = min(n, (V - mis) & (V - 1));
+        const int body = (n - head) & ~(V - 1);
         const int tail = n - head - body;
         // the loads of the unaligned edges go out before the wait
-        float hv[3], tv[3];
+        T hv[V - 1], tv[V - 1];
 #pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          hv[i] = i < head ? src[i] : 0.0f;
-          tv[i] = i < tail ? src[head + body + i] : 0.0f;
+        for (int i = 0; i < V - 1; ++i) {
+          hv[i] = i < head ? src[i] : T(0);
+          tv[i] = i < tail ? src[head + body + i] : T(0);
         }
         if (k >= S) repro::mbar_wait(&empty[s], ((k / S) - 1) & 1);
-        float* dst = stages + s * stage_floats + mis;
+        T* dst = stages + s * stage_floats + mis;
 #pragma unroll
-        for (int i = 0; i < 3; ++i) {
+        for (int i = 0; i < V - 1; ++i) {
           if (i < head) dst[i] = hv[i];
           if (i < tail) dst[head + body + i] = tv[i];
         }
         // the arrival releases the edge stores; the phase completes when the
         // copy's bytes have landed
-        repro::mbar_arrive_expect_tx(&full[s], static_cast<uint32_t>(body) * 4);
-        if (body > 0) {
-          repro::bulk_load(dst + head, src + head, static_cast<uint32_t>(body) * 4, &full[s]);
-        }
+        const uint32_t bytes = static_cast<uint32_t>(body) * sizeof(T);
+        repro::mbar_arrive_expect_tx(&full[s], bytes);
+        if (body > 0) repro::bulk_load(dst + head, src + head, bytes, &full[s]);
       }
     }
     return;
@@ -257,12 +276,13 @@ fused_obj_staged_kernel(const float* __restrict__ x, float* __restrict__ f,
   // + kRowsAtOnce·8, … < R; tile k sits in stage k % S at phase parity
   // (k / S) & 1
   constexpr int kStep = kRowsAtOnce * kConsumerWarps;
-  float2 kept = make_float2(0.0f, 0.0f);  // value-only: this lane's row's sums
+  repro::pair_t<T> kept;  // value-only: this lane's row's sums
+  kept.x = kept.y = T(0);
   long long kept_row = -1;
   int batch = 0;  // rows kept so far, one a lane
   const auto finish_batch = [&]() {
-    float e1, s1, e2;
-    const float fv = repro::row_finish<OBJ>(kept, D, &e1, &s1, &e2);
+    T e1, s1, e2;
+    const T fv = repro::row_finish<OBJ>(kept, D, &e1, &s1, &e2);
     if (kept_row >= 0) f[kept_row] = fv;
     kept_row = -1;
     batch = 0;
@@ -274,13 +294,13 @@ fused_obj_staged_kernel(const float* __restrict__ x, float* __restrict__ f,
     repro::mbar_wait(&full[s], phase);
     const long long left = N - row0;
     const int rows = left < R ? static_cast<int>(left) : R;
-    const float* xs = stages + s * stage_floats + mis;
+    const T* xs = stages + s * stage_floats + mis;
     for (int r = kRowsAtOnce * warp; r < rows; r += kStep) {  // warp-uniform
       // a row past a ragged last tile repeats the step's first row
-      const float* xp[kRowsAtOnce];
+      const T* xp[kRowsAtOnce];
 #pragma unroll
       for (int m = 0; m < kRowsAtOnce; ++m) xp[m] = xs + (r + m < rows ? r + m : r) * D;
-      float2 sums[kRowsAtOnce];
+      repro::pair_t<T> sums[kRowsAtOnce];
       repro::row_sums_n<OBJ, kWarp, kRowsAtOnce>(xp, D, lane, sums);
       const long long row = row0 + r;
       if (WITH_GRAD) {
@@ -289,8 +309,8 @@ fused_obj_staged_kernel(const float* __restrict__ x, float* __restrict__ f,
 #pragma unroll
         for (int m = 0; m < kRowsAtOnce; ++m) {
           if (r + m >= rows) break;
-          float e1 = 0.0f, s1 = 0.0f, e2 = 0.0f;
-          const float fv = repro::row_finish<OBJ>(sums[m], D, &e1, &s1, &e2);
+          T e1 = T(0), s1 = T(0), e2 = T(0);
+          const T fv = repro::row_finish<OBJ>(sums[m], D, &e1, &s1, &e2);
           if (lane == 0) f[row + m] = fv;
           repro::grad_row<OBJ>(xp[m], g + (row + m) * D, D, lane, kWarp, e1, s1, e2);
         }
@@ -319,19 +339,18 @@ fused_obj_staged_kernel(const float* __restrict__ x, float* __restrict__ f,
 
 // Above the staged variant's D: a warp a row, eight rows a block, the lanes
 // striding over D.
-template <int OBJ, bool WITH_GRAD>
+template <typename T, int OBJ, bool WITH_GRAD>
 __global__ void __launch_bounds__(kThreads)
-fused_obj_kernel(const float* __restrict__ x, float* __restrict__ f,
-                 float* __restrict__ g, int N, int D) {
+fused_obj_kernel(const T* __restrict__ x, T* __restrict__ f, T* __restrict__ g, int N, int D) {
   constexpr int kWarpsPerBlock = kThreads / kWarp;
   const int lane = threadIdx.x % kWarp;
   const long long row =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
   if (row >= N) return;  // whole warp leaves together: row is warp-uniform
-  const float* xr = x + row * D;
+  const T* xr = x + row * D;
 
-  float e1 = 0.0f, s1 = 0.0f, e2 = 0.0f;
-  const float fv = repro::row_value<OBJ, kWarp>(xr, D, lane, &e1, &s1, &e2);
+  T e1 = T(0), s1 = T(0), e2 = T(0);
+  const T fv = repro::row_value<OBJ, kWarp>(xr, D, lane, &e1, &s1, &e2);
   if (lane == 0) f[row] = fv;
   if (!WITH_GRAD) return;
 
@@ -354,10 +373,10 @@ int sm_count() {
 
 // Set once for each instantiation: the largest ring's dynamic shared memory,
 // and the carveout that lets three blocks' rings share an SM.
-template <int OBJ, bool WITH_GRAD>
+template <typename T, int OBJ, bool WITH_GRAD>
 cudaError_t staged_attributes() {
   static const cudaError_t err = [] {
-    const auto kernel = fused_obj_staged_kernel<OBJ, WITH_GRAD>;
+    const auto kernel = fused_obj_staged_kernel<T, OBJ, WITH_GRAD>;
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSmemPerBlock));
     if (e == cudaSuccess) {
@@ -369,10 +388,9 @@ cudaError_t staged_attributes() {
   return err;
 }
 
-template <int OBJ, bool WITH_GRAD>
-int launch_staged(const float* x, float* f, float* g, int N, int D, const Ring& rg,
-                  cudaStream_t stream) {
-  const cudaError_t err = staged_attributes<OBJ, WITH_GRAD>();
+template <typename T, int OBJ, bool WITH_GRAD>
+int launch_staged(const T* x, T* f, T* g, int N, int D, const Ring& rg, cudaStream_t stream) {
+  const cudaError_t err = staged_attributes<T, OBJ, WITH_GRAD>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int sms = sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
@@ -381,43 +399,57 @@ int launch_staged(const float* x, float* f, float* g, int N, int D, const Ring& 
   const long long ntiles = (static_cast<long long>(N) + rg.rows - 1) / rg.rows;
   const long long resident = static_cast<long long>(sms) * per_sm;
   const unsigned grid = static_cast<unsigned>(ntiles < resident ? ntiles : resident);
-  fused_obj_staged_kernel<OBJ, WITH_GRAD><<<grid, kStagedThreads, rg.smem, stream>>>(
+  fused_obj_staged_kernel<T, OBJ, WITH_GRAD><<<grid, kStagedThreads, rg.smem, stream>>>(
       x, f, g, N, D, rg.rows, rg.stages);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int OBJ, bool WITH_GRAD, int P>
-int launch_rows(const float* x, float* f, float* g, int N, int D, cudaStream_t stream) {
+template <typename T, int OBJ, bool WITH_GRAD, int P>
+int launch_rows(const T* x, T* f, T* g, int N, int D, cudaStream_t stream) {
   constexpr int kRows = kTileFloats / P;
   const long long blocks = (static_cast<long long>(N) + kRows - 1) / kRows;
-  fused_obj_rows_kernel<OBJ, WITH_GRAD, P>
+  fused_obj_rows_kernel<T, OBJ, WITH_GRAD, P>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(x, f, g, N, D);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int OBJ, bool WITH_GRAD>
-int launch_layout(const float* x, float* f, float* g, int N, int D, cudaStream_t stream) {
+template <typename T, int OBJ, bool WITH_GRAD>
+int launch_layout(const T* x, T* f, T* g, int N, int D, cudaStream_t stream) {
   switch (row_threads(D)) {
-    case 1: return launch_rows<OBJ, WITH_GRAD, 1>(x, f, g, N, D, stream);
-    case 2: return launch_rows<OBJ, WITH_GRAD, 2>(x, f, g, N, D, stream);
-    case 4: return launch_rows<OBJ, WITH_GRAD, 4>(x, f, g, N, D, stream);
-    case 8: return launch_rows<OBJ, WITH_GRAD, 8>(x, f, g, N, D, stream);
-    case 16: return launch_rows<OBJ, WITH_GRAD, 16>(x, f, g, N, D, stream);
+    case 1: return launch_rows<T, OBJ, WITH_GRAD, 1>(x, f, g, N, D, stream);
+    case 2: return launch_rows<T, OBJ, WITH_GRAD, 2>(x, f, g, N, D, stream);
+    case 4: return launch_rows<T, OBJ, WITH_GRAD, 4>(x, f, g, N, D, stream);
+    case 8: return launch_rows<T, OBJ, WITH_GRAD, 8>(x, f, g, N, D, stream);
+    case 16: return launch_rows<T, OBJ, WITH_GRAD, 16>(x, f, g, N, D, stream);
     default: break;
   }
-  const Ring rg = ring(D);
-  if (rg.stages >= kMinStages) return launch_staged<OBJ, WITH_GRAD>(x, f, g, N, D, rg, stream);
+  const Ring rg = ring<T>(D);
+  if (rg.stages >= kMinStages) {
+    return launch_staged<T, OBJ, WITH_GRAD>(x, f, g, N, D, rg, stream);
+  }
   const long long blocks = (static_cast<long long>(N) + kThreads / kWarp - 1) / (kThreads / kWarp);
-  fused_obj_kernel<OBJ, WITH_GRAD>
+  fused_obj_kernel<T, OBJ, WITH_GRAD>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(x, f, g, N, D);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int OBJ>
-int launch_obj(bool with_grad, const float* x, float* f, float* g, int N, int D,
-               cudaStream_t stream) {
-  return with_grad ? launch_layout<OBJ, true>(x, f, g, N, D, stream)
-                   : launch_layout<OBJ, false>(x, f, g, N, D, stream);
+template <typename T, int OBJ>
+int launch_obj(bool with_grad, const T* x, T* f, T* g, int N, int D, cudaStream_t stream) {
+  return with_grad ? launch_layout<T, OBJ, true>(x, f, g, N, D, stream)
+                   : launch_layout<T, OBJ, false>(x, f, g, N, D, stream);
+}
+
+template <typename T>
+int launch_objective(int objective, int with_grad, const T* x, T* f, T* g, int N, int D,
+                     cudaStream_t stream) {
+  if (N <= 0) return 0;
+  switch (objective) {
+    case kSphere: return launch_obj<T, kSphere>(with_grad != 0, x, f, g, N, D, stream);
+    case kRastrigin: return launch_obj<T, kRastrigin>(with_grad != 0, x, f, g, N, D, stream);
+    case kRosenbrock: return launch_obj<T, kRosenbrock>(with_grad != 0, x, f, g, N, D, stream);
+    case kAckley: return launch_obj<T, kAckley>(with_grad != 0, x, f, g, N, D, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // trig_fast_path (objective.cuh) against cosf and sinf on every float t with
@@ -451,14 +483,13 @@ trig_check_kernel(unsigned long long* counts, unsigned int base) {
 extern "C" int fused_obj_launch(int objective, int with_grad, const float* x,
                                 float* f, float* g, int N, int D,
                                 cudaStream_t stream) {
-  if (N <= 0) return 0;
-  switch (objective) {
-    case kSphere: return launch_obj<kSphere>(with_grad != 0, x, f, g, N, D, stream);
-    case kRastrigin: return launch_obj<kRastrigin>(with_grad != 0, x, f, g, N, D, stream);
-    case kRosenbrock: return launch_obj<kRosenbrock>(with_grad != 0, x, f, g, N, D, stream);
-    case kAckley: return launch_obj<kAckley>(with_grad != 0, x, f, g, N, D, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_objective<float>(objective, with_grad, x, f, g, N, D, stream);
+}
+
+// The same in float64 (x at any 8-byte alignment).
+extern "C" int fused_obj_launch_f64(int objective, int with_grad, const double* x, double* f,
+                                    double* g, int N, int D, cudaStream_t stream) {
+  return launch_objective<double>(objective, with_grad, x, f, g, N, D, stream);
 }
 
 // counts (3,) uint64, zeroed by the caller: the trig check over all 2^32 bit

@@ -81,6 +81,13 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
                : "memory");
 }
 
+// 8 bytes of device memory into shared memory, asynchronously, as
+// cp_async_4 (both addresses 8-byte aligned)
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
 // one arrival on `bar` once every cp.async this thread has issued so far
 // has landed; counts against the barrier's expected arrivals (noinc), so a
 // barrier that every thread of the block arrives on this way is initialised

@@ -8,6 +8,8 @@
 // for the H' rows (it needs only u, δx, ρ and s). The callers hand both
 // passes a shared-memory copy of H where it fits, so that device memory is
 // read once, and H in device memory above that, which is then read twice.
+// Every pass is a template on the element type T (float or double), deduced
+// from its arguments; the float instantiations are the float32 kernels'.
 // bfgs_update.cu's warp-per-lane variant for small D shares updated_entry
 // and the order of every row sum. Every caller runs this one code, so two
 // kernels given the same inputs write the same bits.
@@ -19,8 +21,8 @@ namespace repro {
 
 // Butterfly sums of R independent values, their shuffles interleaved; each
 // value's sum is warp_sum's, bit for bit.
-template <int R>
-__device__ __forceinline__ void warp_sum_n(float (&v)[R]) {
+template <int R, typename T>
+__device__ __forceinline__ void warp_sum_n(T (&v)[R]) {
 #pragma unroll
   for (int offset = kWarp / 2; offset > 0; offset >>= 1) {
 #pragma unroll
@@ -32,20 +34,20 @@ __device__ __forceinline__ void warp_sum_n(float (&v)[R]) {
 // rows i_begin + w, i_begin + w + nwarps, …, R of its rows at a time (their
 // sums interleaved, each in the one-row order: lane j adds columns j,
 // j + 32, …, then the butterfly).
-template <int R = 1>
-__device__ __forceinline__ void block_hdg_rows(const float* H, const float* sdg,
-                                               float* su, int D, int i_begin, int i_end,
-                                               int warp, int lane, int nwarps) {
+template <int R = 1, typename T>
+__device__ __forceinline__ void block_hdg_rows(const T* H, const T* sdg, T* su, int D,
+                                               int i_begin, int i_end, int warp, int lane,
+                                               int nwarps) {
   for (int i0 = i_begin + warp; i0 < i_end; i0 += R * nwarps) {
-    const float* hr[R];
-    float acc[R];
+    const T* hr[R];
+    T acc[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {  // a row past the range repeats its last, unstored
       hr[r] = H + static_cast<long long>(min(i0 + r * nwarps, i_end - 1)) * D;
-      acc[r] = 0.0f;
+      acc[r] = T(0);
     }
     for (int j = lane; j < D; j += kWarp) {
-      const float d = sdg[j];
+      const T d = sdg[j];
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] += hr[r][j] * d;
     }
@@ -60,25 +62,24 @@ __device__ __forceinline__ void block_hdg_rows(const float* H, const float* sdg,
 }
 
 // block_hdg_rows over every row of H.
-template <int R = 1>
-__device__ __forceinline__ void block_hdg(const float* H, const float* sdg,
-                                          float* su, int D, int warp, int lane,
-                                          int nwarps) {
+template <int R = 1, typename T>
+__device__ __forceinline__ void block_hdg(const T* H, const T* sdg, T* su, int D, int warp,
+                                          int lane, int nwarps) {
   block_hdg_rows<R>(H, sdg, su, D, 0, D, warp, lane, nwarps);
 }
 
 // a·b over D, by one warp; every lane returns the sum.
-__device__ __forceinline__ float warp_dot(const float* a, const float* b, int D,
-                                          int lane) {
-  float acc = 0.0f;
+template <typename T>
+__device__ __forceinline__ T warp_dot(const T* a, const T* b, int D, int lane) {
+  T acc = T(0);
   for (int j = lane; j < D; j += kWarp) acc += a[j] * b[j];
   return warp_sum(acc);
 }
 
 // One entry of H', (i, j): h − ρ(u_i δx_j + δx_i u_j) + coef·δx_i δx_j, in
 // the order every variant of every kernel rounds it (built -fmad=false).
-__device__ __forceinline__ float updated_entry(float h, float ui, float dxi, float uj,
-                                               float dxj, float rho, float coef) {
+template <typename T>
+__device__ __forceinline__ T updated_entry(T h, T ui, T dxi, T uj, T dxj, T rho, T coef) {
   return h - rho * (ui * dxj + dxi * uj) + coef * (dxi * dxj);
 }
 
@@ -86,16 +87,14 @@ __device__ __forceinline__ float updated_entry(float h, float ui, float dxi, flo
 // warp w taking rows w, w + nwarps, …, R of them at a time as block_hdg
 // does. coef is ρ²s + ρ. O may alias H: each element is read before it is
 // written, by the lane that writes it.
-template <bool DIRECTION, int R = 1>
-__device__ __forceinline__ void block_update_rows(const float* H, float* O,
-                                                  const float* su, const float* sdx,
-                                                  const float* sgn, float rho,
-                                                  float coef, float* p_out, int D,
-                                                  int warp, int lane, int nwarps) {
+template <bool DIRECTION, int R = 1, typename T>
+__device__ __forceinline__ void block_update_rows(const T* H, T* O, const T* su, const T* sdx,
+                                                  const T* sgn, T rho, T coef, T* p_out,
+                                                  int D, int warp, int lane, int nwarps) {
   for (int i0 = warp; i0 < D; i0 += R * nwarps) {
-    const float* hr[R];
-    float* orow[R];
-    float ui[R], dxi[R], acc[R];
+    const T* hr[R];
+    T* orow[R];
+    T ui[R], dxi[R], acc[R];
     bool store[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {  // a row past D repeats row D - 1, unstored
@@ -106,13 +105,13 @@ __device__ __forceinline__ void block_update_rows(const float* H, float* O,
       orow[r] = O + static_cast<long long>(ic) * D;
       ui[r] = su[ic];
       dxi[r] = sdx[ic];
-      acc[r] = 0.0f;
+      acc[r] = T(0);
     }
     for (int j = lane; j < D; j += kWarp) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float h = hr[r][j];
-        const float hn = updated_entry(h, ui[r], dxi[r], su[j], sdx[j], rho, coef);
+        const T h = hr[r][j];
+        const T hn = updated_entry(h, ui[r], dxi[r], su[j], sdx[j], rho, coef);
         if (store[r]) orow[r][j] = hn;
         if (DIRECTION) acc[r] += hn * sgn[j];
       }

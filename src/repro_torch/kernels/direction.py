@@ -16,13 +16,15 @@ def direction_plain(H, g):
 
 
 def direction_cuda(H, g):
-    """The CUDA kernel; same contract as direction_plain, float32 on the card."""
+    """The CUDA kernel; same contract as direction_plain, float32 or
+    float64 on the card (g in H's dtype)."""
     shape = H.shape
     if len(shape) != 3 or shape[1] != shape[2]:
         raise ValueError(f"direction: H must be (B, D, D), got {tuple(shape)}")
-    _build.check_tensor("direction", "H", H, shape)
-    _build.check_tensor("direction", "g", g, shape[:2], H.device)
+    sym = _build.symbol("direction", "direction_launch", H.dtype)
+    _build.check_tensor("direction", "H", H, shape, dtype=H.dtype)
+    _build.check_tensor("direction", "g", g, shape[:2], H.device, H.dtype)
     p = torch.empty_like(g)
-    _build.launch("direction_launch", H.data_ptr(), g.data_ptr(), p.data_ptr(),
+    _build.launch(sym, H.data_ptr(), g.data_ptr(), p.data_ptr(),
                   shape[0], shape[1], _build.stream(H))
     return p

@@ -77,9 +77,10 @@ def value_grad_plain(name: str, x: torch.Tensor, with_grad: bool = True):
 
 
 def value_grad_cuda(name: str, x: torch.Tensor, with_grad: bool = True):
-    """The CUDA kernel: x (N, D) float32 contiguous on the card, at any
-    4-byte alignment -> (f (N,), g (N, D) or None). The variant follows D
-    alone (ops.fused_obj_variant; csrc/fused_obj.cu)."""
+    """The CUDA kernel: x (N, D) float32 or float64, contiguous on the
+    card, at any alignment of its element -> (f (N,), g (N, D) or None) in
+    x's dtype. The variant follows D and the dtype
+    (ops.fused_obj_variant; csrc/fused_obj.cu)."""
     kernel_id = _KERNEL_ID.get(name)
     if kernel_id is None:
         raise ValueError(f"no fused kernel for objective {name!r}; "
@@ -87,11 +88,12 @@ def value_grad_cuda(name: str, x: torch.Tensor, with_grad: bool = True):
     shape = x.shape
     if len(shape) != 2:
         raise ValueError(f"fused_obj: x must be (N, D), got {tuple(shape)}")
-    _build.check_tensor("fused_obj", "x", x, shape)
+    sym = _build.symbol("fused_obj", "fused_obj_launch", x.dtype)
+    _build.check_tensor("fused_obj", "x", x, shape, dtype=x.dtype)
     N, D = shape
     f = x.new_empty(N)
     g = torch.empty_like(x) if with_grad else None
-    _build.launch("fused_obj_launch", kernel_id, int(with_grad), x.data_ptr(),
+    _build.launch(sym, kernel_id, int(with_grad), x.data_ptr(),
                   f.data_ptr(), g.data_ptr() if with_grad else None, N, D,
                   _build.stream(x))
     return f, g

@@ -8,7 +8,9 @@ JAX ops pad D to the TPU's 128-lane tile, which these kernels do not need.
 
 Each op carries a plain integer counter, `<op>.launches`, that it raises by
 one where it launches its kernel and nowhere else, so a run can show that
-its main path went through the kernels.
+its main path went through the kernels. The ops with a float64 kernel
+(FLOAT64_OPS: B1a, B1b, B2, B3, B4) count their float64 launches apart, in
+`<op>.launches_f64`, which `launch_counts()` reports as `<op>_f64`.
 """
 from __future__ import annotations
 
@@ -28,12 +30,21 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.is_cpu
 
 
+def _launched(op, t: torch.Tensor) -> None:
+    """Count one launch of `op`'s kernel on `t`: its float64 instantiation's
+    counter for a float64 tensor, else the float32 one."""
+    if t.dtype is torch.float64:
+        op.launches_f64 += 1
+    else:
+        op.launches += 1
+
+
 def fused_value_grad(name: str, x: torch.Tensor):
     """x (N, D) -> (f (N,), g (N, D)) for a name in FUSED_OBJECTIVES."""
     if _on_cpu(x):
         return fused_obj.value_grad_plain(name, x)
     out = fused_obj.value_grad_cuda(name, x)
-    fused_value_grad.launches += 1
+    _launched(fused_value_grad, x)
     return out
 
 
@@ -43,8 +54,17 @@ def fused_value(name: str, x: torch.Tensor) -> torch.Tensor:
     if _on_cpu(x):
         return fused_obj.value_grad_plain(name, x, with_grad=False)[0]
     f, _ = fused_obj.value_grad_cuda(name, x, with_grad=False)
-    fused_value.launches += 1
+    _launched(fused_value, x)
     return f
+
+
+def _itemsize(dtype) -> int:
+    """Bytes an element of a kernel's dtype (float32 or float64)."""
+    if dtype is torch.float32:
+        return 4
+    if dtype is torch.float64:
+        return 8
+    raise TypeError(f"the kernels take float32 or float64 (got {dtype})")
 
 
 def fused_obj_row_threads(D: int) -> int:
@@ -60,56 +80,63 @@ def fused_obj_row_threads(D: int) -> int:
 
 
 # -- variants of the fused-objective kernel (B1a, B1b) -------------------------
-# csrc/fused_obj.cu picks one of three variants by D alone, with the rules
-# stated here (row_threads, ring and launch_layout there):
+# csrc/fused_obj.cu picks one of three variants by D and the element size,
+# with the rules stated here (row_threads, ring and launch_layout there):
 #   rows    — row groups of P < 32 lanes through a shared-memory tile, D <= 16;
 #   staged  — a warp a row, persistent blocks, tiles of R rows (a multiple
 #             of 16, about 16 KB, 16 to 64 rows: two rows at a time for each
 #             of eight consumer warps) staged by bulk copies through a ring
-#             of S <= 4 stages of R·D + 4 floats behind 64 bytes of
-#             mbarriers, while two stages of 16 rows fit in a block's
-#             232,448 bytes: 17 <= D <= 1815;
+#             of S <= 4 stages of R·D elements and a 16-byte pad behind 64
+#             bytes of mbarriers, while two stages of 16 rows fit in a
+#             block's 232,448 bytes: 17 <= D <= 1815 in float32, to 907 in
+#             float64;
 #   direct  — a warp a row reading device memory, above.
-_FUSED_TILE_FLOATS = 4096  # a stage's target, 16 KB
+_FUSED_TILE_BYTES = 16384  # a stage's target, 16 KB
 _FUSED_TILE_ROWS = (16, 64)
 _FUSED_MAX_STAGES = 4
 _FUSED_BARRIER_BYTES = 64
+_FUSED_PAD_BYTES = 16  # a stage's room for a base that is not 16-byte aligned
 
 
-def fused_obj_tile_rows(D: int) -> int:
-    """Rows a tile of the staged variant at D: 4096 // D rounded down to a
-    multiple of 16, from 16 to 64."""
+def fused_obj_tile_rows(D: int, dtype=torch.float32) -> int:
+    """Rows a tile of the staged variant at D: 16 KB of elements (4096
+    floats, 2048 doubles) over D, rounded down to a multiple of 16, from 16
+    to 64."""
     lo, hi = _FUSED_TILE_ROWS
-    return min(hi, max(lo, _FUSED_TILE_FLOATS // D // lo * lo))
+    return min(hi, max(lo, _FUSED_TILE_BYTES // _itemsize(dtype) // D // lo * lo))
 
 
-def fused_obj_ring_bytes(D: int, rows: int, stages: int) -> int:
+def fused_obj_ring_bytes(D: int, rows: int, stages: int, dtype=torch.float32) -> int:
     """Shared memory of a block of the staged variant: `stages` stages of
-    rows·D + 4 floats (the 4 take a base that is not 16-byte aligned)
-    behind the full and empty mbarriers."""
-    return stages * (rows * D + 4) * 4 + _FUSED_BARRIER_BYTES
+    rows·D elements and a 16-byte pad (4 floats or 2 doubles, which take a
+    base that is not 16-byte aligned) behind the full and empty mbarriers."""
+    size = _itemsize(dtype)
+    return stages * (rows * D + _FUSED_PAD_BYTES // size) * size + _FUSED_BARRIER_BYTES
 
 
-def fused_obj_stages(D: int) -> int:
+def fused_obj_stages(D: int, dtype=torch.float32) -> int:
     """Stages of the staged variant's ring at D: as many as fit in a block's
     shared memory, at most 4; under 2 where the variant does not run."""
-    stage = fused_obj_ring_bytes(D, fused_obj_tile_rows(D), 1) - _FUSED_BARRIER_BYTES
+    stage = (fused_obj_ring_bytes(D, fused_obj_tile_rows(D, dtype), 1, dtype)
+             - _FUSED_BARRIER_BYTES)
     return min(_FUSED_MAX_STAGES, (SMEM_PER_BLOCK - _FUSED_BARRIER_BYTES) // stage)
 
 
-def fused_obj_staged_max_dim() -> int:
+def fused_obj_staged_max_dim(dtype=torch.float32) -> int:
     """The largest D whose smallest ring, two stages of 16 rows, fits:
-    2·(16·D + 4)·4 + 64 <= 232,448 bytes, 1815."""
-    lo = _FUSED_TILE_ROWS[0]
-    return ((SMEM_PER_BLOCK - _FUSED_BARRIER_BYTES) // (2 * 4) - 4) // lo
+    2·(16·D + 16 / s)·s + 64 <= 232,448 bytes for elements of s bytes, 1815
+    in float32 and 907 in float64."""
+    lo, size = _FUSED_TILE_ROWS[0], _itemsize(dtype)
+    return (((SMEM_PER_BLOCK - _FUSED_BARRIER_BYTES) // (2 * size)
+             - _FUSED_PAD_BYTES // size) // lo)
 
 
-def fused_obj_variant(D: int) -> str:
-    """The variant of the fused-objective kernel that rows of D run:
-    "rows", "staged" or "direct"."""
+def fused_obj_variant(D: int, dtype=torch.float32) -> str:
+    """The variant of the fused-objective kernel that rows of D run in
+    `dtype`: "rows", "staged" or "direct"."""
     if fused_obj_row_threads(D) < 32:
         return "rows"
-    return "staged" if fused_obj_stages(D) >= 2 else "direct"
+    return "staged" if fused_obj_stages(D, dtype) >= 2 else "direct"
 
 
 def guarded_update_direction(H, dx, dg, g_new, rho):
@@ -118,7 +145,7 @@ def guarded_update_direction(H, dx, dg, g_new, rho):
     if _on_cpu(H):
         return _bfgs_update.guarded_update_direction_plain(H, dx, dg, g_new, rho)
     out = _bfgs_update.guarded_update_direction_cuda(H, dx, dg, g_new, rho)
-    guarded_update_direction.launches += 1
+    _launched(guarded_update_direction, H)
     return out
 
 
@@ -146,7 +173,7 @@ def direction(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if _on_cpu(H):
         return _direction.direction_plain(H, g)
     p = _direction.direction_cuda(H, g)
-    direction.launches += 1
+    _launched(direction, H)
     return p
 
 
@@ -155,7 +182,7 @@ def pso_step_update(x, v, px, gx, r1, r2, w, c1, c2):
     if _on_cpu(x):
         return pso_step.pso_step_plain(x, v, px, gx, r1, r2, w, c1, c2)
     out = pso_step.pso_step_cuda(x, v, px, gx, r1, r2, w, c1, c2)
-    pso_step_update.launches += 1
+    _launched(pso_step_update, x)
     return out
 
 
@@ -205,14 +232,16 @@ def megakernel_smem_dim(K: int, full: bool = True) -> int:
 
 
 # -- variants of the BFGS-update kernel (B2, B7a, B7b) --------------------------
-# csrc/bfgs_update.cu picks one of three variants by the lane's D alone,
-# with the rules stated here (kSmallMaxDim and h_fits_smem there):
+# csrc/bfgs_update.cu picks one of three variants by the lane's D and the
+# element size, with the rules stated here (kSmallMaxDim and h_fits_smem
+# there):
 #   small      — a warp per lane while a row fits in the warp's 32 threads,
 #                D <= 32;
 #   smem       — one block per lane reading H once through shared memory
-#                while D² + 4·D floats (H, δx, δg, g', u) and 128 bytes of
+#                while D² + 4·D elements (H, δx, δg, g', u) and 128 bytes of
 #                static scalars fit in a block's 232,448 bytes,
-#                (D² + 4·D)·4 + 128 <= 232,448: D <= 239;
+#                (D² + 4·D)·s + 128 <= 232,448 for elements of s bytes:
+#                D <= 239 in float32, 168 in float64;
 #   streaming  — one block per lane streaming H from device memory twice.
 _UPDATE_SMEM_SCALARS = 128
 
@@ -223,22 +252,24 @@ def update_small_dim() -> int:
     return 32
 
 
-def update_smem_dim() -> int:
+def update_smem_dim(dtype=torch.float32) -> int:
     """The largest D at which the BFGS-update kernel reads each lane's H
-    from device memory once: (D² + 4·D)·4 + 128 <= 232,448 bytes, 239.
-    Above it the kernel streams H twice."""
-    D = math.isqrt((SMEM_PER_BLOCK - _UPDATE_SMEM_SCALARS) // 4)
-    while D > 0 and (D * D + 4 * D) * 4 + _UPDATE_SMEM_SCALARS > SMEM_PER_BLOCK:
+    from device memory once: (D² + 4·D)·s + 128 <= 232,448 bytes for
+    elements of s bytes, 239 in float32 and 168 in float64. Above it the
+    kernel streams H twice."""
+    size = _itemsize(dtype)
+    D = math.isqrt((SMEM_PER_BLOCK - _UPDATE_SMEM_SCALARS) // size)
+    while D > 0 and (D * D + 4 * D) * size + _UPDATE_SMEM_SCALARS > SMEM_PER_BLOCK:
         D -= 1
     return D
 
 
-def update_variant(D: int) -> str:
-    """The variant of the BFGS-update kernel that a lane of D runs:
-    "small", "smem" or "streaming"."""
+def update_variant(D: int, dtype=torch.float32) -> str:
+    """The variant of the BFGS-update kernel that a lane of D runs in
+    `dtype`: "small", "smem" or "streaming"."""
     if D <= update_small_dim():
         return "small"
-    return "smem" if D <= update_smem_dim() else "streaming"
+    return "smem" if D <= update_smem_dim(dtype) else "streaming"
 
 
 def sweep_megakernel_full(name, X, P, G, H, active, rhs, alphas, exhaust_alpha):
@@ -284,14 +315,25 @@ KERNEL_OPS = (fused_value, fused_value_grad, guarded_update_direction,
               bfgs_update, bfgs_update_direction, direction, pso_step_update,
               meanfield_step_update, sweep_megakernel_full, sweep_megakernel_commit,
               flash_attention)
-for _op in KERNEL_OPS:
-    _op.launches = 0
+# the ops whose kernels have a float64 instantiation (the batched dense-BFGS
+# path: B1a, B1b, B2, B3, B4)
+FLOAT64_OPS = (fused_value, fused_value_grad, guarded_update_direction, direction,
+               pso_step_update)
 
 
 def reset_launch_counts() -> None:
     for op in KERNEL_OPS:
         op.launches = 0
+    for op in FLOAT64_OPS:
+        op.launches_f64 = 0
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    return {op.__name__: op.launches for op in KERNEL_OPS}
+    """Every counter by name: `<op>` for float32 launches (every kernel
+    launch of the ops without a float64 kernel), `<op>_f64` for float64."""
+    counts = {op.__name__: op.launches for op in KERNEL_OPS}
+    counts.update({f"{op.__name__}_f64": op.launches_f64 for op in FLOAT64_OPS})
+    return counts

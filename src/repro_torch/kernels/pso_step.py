@@ -18,16 +18,18 @@ def pso_step_plain(x, v, px, gx, r1, r2, w, c1, c2):
 
 
 def pso_step_cuda(x, v, px, gx, r1, r2, w, c1, c2):
-    """The CUDA kernel; same contract as pso_step_plain, float32 on the card."""
+    """The CUDA kernel; same contract as pso_step_plain, float32 or float64
+    on the card (every tensor in x's dtype; w, c1 and c2 rounded to it)."""
     if x.dim() != 2:
         raise ValueError(f"pso_step: x must be (N, D), got {tuple(x.shape)}")
     N, D = x.shape
+    sym = _build.symbol("pso_step", "pso_step_launch", x.dtype)
     for arg, t in (("x", x), ("v", v), ("px", px), ("r1", r1), ("r2", r2)):
-        _build.check_tensor("pso_step", arg, t, (N, D), x.device)
-    _build.check_tensor("pso_step", "gx", gx, (D,), x.device)
+        _build.check_tensor("pso_step", arg, t, (N, D), x.device, x.dtype)
+    _build.check_tensor("pso_step", "gx", gx, (D,), x.device, x.dtype)
     x_new = torch.empty_like(x)
     v_new = torch.empty_like(x)
-    _build.launch("pso_step_launch", x.data_ptr(), v.data_ptr(), px.data_ptr(),
+    _build.launch(sym, x.data_ptr(), v.data_ptr(), px.data_ptr(),
                   gx.data_ptr(), r1.data_ptr(), r2.data_ptr(), float(w),
                   float(c1), float(c2), x_new.data_ptr(), v_new.data_ptr(),
                   N, D, _build.stream(x))

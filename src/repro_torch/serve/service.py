@@ -52,7 +52,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import refuse_float64, resolve_device
 from repro_torch.core.bfgs import BFGSResult
 from repro_torch.core.engine import (
     CONVERGED,
@@ -118,6 +118,8 @@ class ProblemRegistry:
         Objective instance."""
         if name in self._problems:
             raise ValueError(f"problem {name!r} already registered")
+        if opts is not None:
+            refuse_float64(opts.dtype, entry="the solve service")
         obj = get_objective(objective) if isinstance(objective, str) else objective
         if dim <= 0:
             raise ValueError(f"dim must be >= 1 (got {dim})")

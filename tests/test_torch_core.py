@@ -57,18 +57,18 @@ class ReplayDraws:
         return torch.from_numpy(np.array(a))
 
 
-def jax_pso_draws(key, n, dim, lower, upper, iters):
+def jax_pso_draws(key, n, dim, lower, upper, iters, dtype=jnp.float32):
     """The draws of repro.core.pso.run_pso, in call order: init_swarm
     splits (key, 3) into kx, kv, knext; each step splits its key into
-    k1, k2, knext."""
+    k1, k2, knext. float64 draws need jax's x64 mode on."""
     kx, kv, key = jax.random.split(key, 3)
     rng = upper - lower
-    out = [jax.random.uniform(kx, (n, dim), jnp.float32, lower, upper),
-           jax.random.uniform(kv, (n, dim), jnp.float32, -rng, rng)]
+    out = [jax.random.uniform(kx, (n, dim), dtype, lower, upper),
+           jax.random.uniform(kv, (n, dim), dtype, -rng, rng)]
     for _ in range(iters):
         k1, k2, key = jax.random.split(key, 3)
-        out += [jax.random.uniform(k1, (n, dim), jnp.float32),
-                jax.random.uniform(k2, (n, dim), jnp.float32)]
+        out += [jax.random.uniform(k1, (n, dim), dtype),
+                jax.random.uniform(k2, (n, dim), dtype)]
     return [np.asarray(a) for a in out]
 
 
@@ -176,8 +176,11 @@ def test_swarm_state_interop_round_trip():
              "gx": np.ones(2, np.float32), "gf": np.float32(0.0), "key": None}
     s = interop.swarm_state_from_numpy(state)
     assert s.x.dtype == torch.float32 and s.gf.dim() == 0
-    with pytest.raises(TypeError, match="float32"):
-        interop.swarm_state_from_numpy({**state, "x": np.ones((3, 2))})
+    # float64 state (the reference's under x64) keeps its dtype
+    s64 = interop.swarm_state_from_numpy({k: (np.asarray(v, np.float64) if v is not None
+                                              else None) for k, v in state.items()})
+    assert s64.x.dtype == torch.float64 and s64.gf.dtype == torch.float64
+    np.testing.assert_array_equal(s64.x.numpy(), state["x"])
 
 
 @pytest.mark.parametrize("mode", ["forward", "reverse"])

@@ -292,13 +292,14 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card(entry):
     pytest.param(dict(schedule="auto", auto_cost_model=True), None, id="kw4-A12"),
     pytest.param(dict(solver="lbfgs", sweep_mode="per_lane", checkpoint_dir="ckpt"), None,
                  id="kw5-A11"),
-    pytest.param(dict(dtype="float64"), (NotImplementedError, "float32"), id="kw6-float32"),
+    pytest.param(dict(dtype="float64"), None, id="kw6-float32"),
 ])
 def test_unported_options_raise(kw, raises):
     """The options earlier slices refused as not ported (ROADMAP A11, A12)
     now solve, or raise ValueError where the reference does (retry off the
-    batched modes, a cadence without a directory); float64 is still not
-    ported."""
+    batched modes, a cadence without a directory); dtype="float64", once
+    refused as float32-only (the case keeps its id), now solves on the
+    batched sweep."""
     obj = get_objective("sphere")
     opts = ZeusOptions(pso=PSOOptions(n_particles=8, iter_pso=1), **kw)
     if raises is not None:
