@@ -395,13 +395,26 @@ DIJET_EDGES = (1000.0, 6000.0, 41)
 DIJET_SEED = 7
 # the fields a schedule's solve must share with its static counterpart
 SAME_FIELDS = ("x", "fval", "grad_norm", "status", "n_evals")
-# float64 (ROADMAP A19a): B1a/B1b, B2, B3 and B4 in double, on the batched
-# dense-BFGS path. Kernel against plain version on identical float64
-# inputs: |k - p| <= TOL64·max(1, max|p|) + TOL64·|p| (sums in another
-# order move a double result by a few ulps of the largest term).
+# float64 (ROADMAP A19a, A19b-1): every ZEUS kernel (B1a to B7b) in double.
+# Kernel against plain version on identical float64 inputs:
+# |k - p| <= TOL64·max(1, max|p|) + TOL64·|p| (sums in another order move a
+# double result by a few ulps of the largest term).
 TOL64 = 1e-12
+# float64 B5/B5b against the plain versions: H' and p' per lane within
+# F64_STATE_TOL of the lane's scale (they hang on δxᵀδg, which the kernel
+# sums in another order), and a rung that differs only at an Armijo margin
+# within KNIFE_EDGE64 of max(1, |threshold|)
+F64_STATE_TOL = 1e-10
+KNIFE_EDGE64 = 1e-12
 # the float64 cells (phase 4): the float32 cell each copies, in float64
-F64_CELLS = {"paper-f64": "paper", "scale-f64": "scale", "dijet-f64": "dijet"}
+F64_CELLS = {"paper-f64": "paper", "scale-f64": "scale", "dijet-f64": "dijet",
+             "per_lane-paper-f64": "per_lane-paper", "per_lane-scale-f64": "per_lane-scale",
+             "wolfe-paper-f64": "wolfe-paper", "megakernel-paper-f64": "megakernel-paper",
+             "megakernel-scale-f64": "megakernel-scale",
+             "megakernel-ladder-scale-f64": "megakernel-ladder-scale",
+             "meanfield-f64": "meanfield", "sequential-f64": "sequential"}
+# the batched dense-BFGS cells, whose kernel inputs f64_cases builds
+F64_BATCHED_CELLS = ("paper-f64", "scale-f64", "dijet-f64")
 # the cells at which each float64 kernel is held (phase 3) and timed (phase
 # 5); the dijet NLL has no fused body, so B1 never runs there
 F64_KERNEL_CELLS = {
@@ -410,7 +423,29 @@ F64_KERNEL_CELLS = {
     "guarded_update_direction": ("paper-f64", "scale-f64", "dijet-f64"),
     "direction": ("paper-f64", "scale-f64", "dijet-f64"),
     "pso_step_update": ("paper-f64", "scale-f64", "dijet-f64"),
+    "bfgs_update": ("per_lane-paper-f64", "per_lane-scale-f64"),
+    "bfgs_update_direction": ("per_lane-scale-f64",),
+    "meanfield_step_update": ("meanfield-f64",),
+    "sweep_megakernel_full": ("megakernel-paper-f64", "megakernel-scale-f64"),
+    "sweep_megakernel_commit": ("megakernel-ladder-scale-f64",),
 }
+# the float64 update shape (F64_UPDATE_SHAPES) at which each cell's B2, B7a
+# or B7b entry is held and timed
+F64_UPDATE_SHAPE_OF = {"paper-f64": "paper-f64", "scale-f64": "scale-f64",
+                       "dijet-f64": "dijet-f64", "per_lane-paper-f64": "paper-f64",
+                       "per_lane-scale-f64": "scale-f64"}
+# B5/B5b in float64 at both edges of the single read
+# (ops.megakernel_smem_dim(20, full, float64): 162 for B5, 166 for B5b) and
+# one past each, F64_EDGE_LANES lanes of ackley: at 162 both read H once by
+# a bulk copy, at 163 B5 streams and B5b copies by 8-byte cp.async, at 166
+# B5 streams and B5b copies in bulk, at 167 both stream
+F64_MEGAKERNEL_EDGES = (162, 163, 166, 167)
+F64_EDGE_LANES = 256
+# the float64 megakernel inputs each float64 megakernel cell is held and
+# timed on
+F64_MEGAKERNEL_CASE = {"megakernel-paper-f64": "megakernel-paper-f64",
+                       "megakernel-scale-f64": "megakernel-scale-f64",
+                       "megakernel-ladder-scale-f64": "megakernel-scale-f64"}
 # B1a/B1b in float64 at each row layout's edge (rows to 16, staged from 17),
 # the scale cell's 128 and both edges of the staged variant
 # (ops.fused_obj_staged_max_dim(float64) = 907, and 908, direct), each at
@@ -775,30 +810,41 @@ def bytes_ops_ms(kname, case, dim, objective):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
 
 
-def swarm_cases(gen):
+def swarm_cases(gen, dtype=None):
     """Inputs of B6 at the mean-field solve's shape (2^20 × 8) and at a
-    ragged row count, with an inf in row 3 and a NaN in row 7."""
+    ragged row count, with an inf in row 3 and a NaN in row 7; in `dtype`
+    (float32 unless given)."""
     import torch
 
+    dt = torch.float32 if dtype is None else dtype
+
     def swarm(N, D):
-        x = 5.12 * (2.0 * torch.rand(N, D, generator=gen, device="cuda") - 1.0)
+        x = 5.12 * (2.0 * torch.rand(N, D, generator=gen, device="cuda", dtype=dt) - 1.0)
         x[3, 1] = float("inf")
         x[7, 0] = float("nan")
-        return dict(x=x, v=torch.randn(N, D, generator=gen, device="cuda"),
-                    xbar=torch.randn(D, generator=gen, device="cuda"),
-                    xi=torch.randn(N, D, generator=gen, device="cuda"))
+        return dict(x=x, v=torch.randn(N, D, generator=gen, device="cuda", dtype=dt),
+                    xbar=torch.randn(D, generator=gen, device="cuda", dtype=dt),
+                    xi=torch.randn(N, D, generator=gen, device="cuda", dtype=dt))
 
     return {"meanfield": swarm(2**20, 8), "meanfield-ragged": swarm(MEANFIELD_RAGGED_N, 8)}
 
 
 def meanfield_bounds(case):
-    """bounds() for B6, from the case's shapes."""
+    """bounds() for B6, from the case's shapes and element type."""
+    return larger(*meanfield_bytes_ops_ms(case))
+
+
+def meanfield_bytes_ops_ms(case):
+    """(bytes ms, operations ms) of B6 on `case`, at its element size and
+    the type's peak."""
+    import torch
+
     N, D = case["x"].shape
-    nbytes = 5 * N * D * 4 + D * 4
+    f4 = case["x"].element_size()
+    peak = FP64_OPS_PER_S if case["x"].dtype is torch.float64 else FP32_OPS_PER_S
+    nbytes = 5 * N * D * f4 + D * f4
     ops = 8 * N * D  # d, w·v, λ·d, σ·d, ·ξ, two adds, x + v'
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
 
 
 def update_cases(gen, shapes=UPDATE_SHAPES, dtype=None):
@@ -1027,19 +1073,23 @@ def check_trig():
           f"|t| < 105615 ({time.perf_counter() - t0:.3f} s)")
 
 
-def check_updates(cases):
+def check_updates(cases, dtype=None):
     """Phase 3, B2, B7a and B7b at every update shape, each in the variant
-    its D selects: against the plain versions; H' == H bitwise on the ρ = 0
-    lanes (B2); B7b's H' == B7a's bitwise; the stand-in lane finite (B7a);
-    and ALONE_LANES lanes launched alone bitwise equal to the same lanes
-    inside the full batch (all three)."""
+    its D selects: against the plain versions (at TOL64 in float64); H' ==
+    H bitwise on the ρ = 0 lanes (B2); B7b's H' == B7a's bitwise; the
+    stand-in lane finite (B7a); and ALONE_LANES lanes launched alone bitwise
+    equal to the same lanes inside the full batch (all three). `dtype` is
+    the cases' (float32 unless given)."""
     import torch
     from repro_torch.kernels import ops
 
+    dtype = torch.float32 if dtype is None else dtype
+    tol = (TOL64, TOL64) if dtype is torch.float64 else (RTOL, ATOL)
+    name = " float64" if dtype is torch.float64 else ""
     errors = {}
     for label, c in cases.items():
         B, D = c["g_new"].shape
-        variant = ops.update_variant(D)
+        variant = ops.update_variant(D, dtype)
         lo = max(0, min(5, B - ALONE_LANES))  # off the small variant's 8-lane blocks
         alone = slice(lo, min(B, lo + ALONE_LANES))
         outs = {}
@@ -1047,27 +1097,29 @@ def check_updates(cases):
             got = kern(*args)
             want = plain(*args)
             got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-            errs = [compare(k, p) for k, p in zip(got, want)]
-            require(all(e[2] for e in errs), f"update {label} ({variant}): {kname} "
+            require(all(k.dtype is dtype for k in got), f"update{name} {label}: {kname} "
+                    f"returned {[k.dtype for k in got]}")
+            errs = [compare(k, p, *tol) for k, p in zip(got, want)]
+            require(all(e[2] for e in errs), f"update{name} {label} ({variant}): {kname} "
                     f"disagrees with plain {[e[:2] for e in errs]}")
             errors[kname, label] = (max(e[0] for e in errs), max(e[1] for e in errs), True)
             sub = kern(*(t[alone].contiguous() for t in args))
             sub = sub if isinstance(sub, tuple) else (sub,)
             require(all(bitwise_equal(k[alone], part) for k, part in zip(got, sub)),
-                    f"update {label} ({variant}): {kname} of lanes {lo}..{alone.stop - 1}"
+                    f"update{name} {label} ({variant}): {kname} of lanes {lo}..{alone.stop - 1}"
                     " alone differs from the same lanes in the batch")
             outs[kname] = got
             del want
         frozen = c["frozen"]
         require(bitwise_equal(outs["guarded_update_direction"][0][frozen], c["H"][frozen]),
-                f"update {label} ({variant}): H' != H bitwise on rho = 0 lanes")
+                f"update{name} {label} ({variant}): H' != H bitwise on rho = 0 lanes")
         require(bitwise_equal(outs["bfgs_update_direction"][0], outs["bfgs_update"][0]),
-                f"update {label} ({variant}): update_direction H' != bfgs_update H'")
+                f"update{name} {label} ({variant}): update_direction H' != bfgs_update H'")
         require(bool(torch.isfinite(outs["bfgs_update"][0][0]).all()),
-                f"update {label} ({variant}): stand-in lane not finite")
+                f"update{name} {label} ({variant}): stand-in lane not finite")
         del outs
         torch.cuda.synchronize()
-        print(f"check update {label} B={B} D={D} ({variant}): max_abs_err "
+        print(f"check update{name} {label} B={B} D={D} ({variant}): max_abs_err "
               + ", ".join(f"{k} {errors[k, label][0]:.3g}" for k in UPDATE_KERNELS)
               + f"; H' == H bitwise on {int(frozen.sum())} rho = 0 lanes; B7b H' == B7a "
               f"H' bitwise; stand-in lane finite; lanes {lo}..{alone.stop - 1} alone =="
@@ -1076,43 +1128,78 @@ def check_updates(cases):
 
 
 def solves_f64():
-    """The float64 cells of phase 4: paper, scale and dijet with
+    """The float64 cells of phase 4: each float32 cell of F64_CELLS with
     dtype="float64", each launching only the float64 kernels, exactly as
-    often as the batched sweep fixes: per chunk-step one B1a (the ladder),
-    one B1b (the commit) and one B2; at init one B1b and one B3 a chunk; B4
-    iter_pso times (dijet: no B1, its NLL has no fused body)."""
+    often as its path fixes (sequential-f64: B7a and B3, their counts set
+    by the serial solves). The batched sweep: per chunk-step one B1a (the
+    ladder), one B1b (the commit) and one B2; at init one B1b and one B3 a
+    chunk; B4 iter_pso times (dijet: no B1, its NLL has no fused body);
+    mean-field phase 1: B6 iter_pso times instead of B4. The per-lane sweep:
+    one B3 and one B7a a chunk-step. The megakernel: one B5 (B5b with
+    ladder_len) a chunk-step, B1b and B3 at init, no B2 (and no B1a with
+    the full ladder). The megakernel and per-lane cells keep their phase-4b
+    comparison with the staged kernels or the plain versions."""
     base = solves()
 
-    def exact(pso_iters, n_chunks, fused=True):
+    def batched(pso_iters, n_chunks, fused=True, meanfield_iters=0):
         def counts(res):
             trips = res.raw.map_trips
             out = {"guarded_update_direction_f64": trips, "direction_f64": n_chunks,
-                   "pso_step_update_f64": pso_iters}
+                   "pso_step_update_f64": pso_iters,
+                   "meanfield_step_update_f64": meanfield_iters}
             if fused:
                 out.update(fused_value_f64=trips, fused_value_grad_f64=n_chunks + trips)
+            return out
+        return counts
+
+    def per_lane(pso_iters):
+        return lambda res: {"bfgs_update_f64": res.raw.map_trips,
+                            "direction_f64": res.raw.map_trips,
+                            "pso_step_update_f64": pso_iters}
+
+    def megakernel(pso_iters, n_chunks, full):
+        def counts(res):
+            trips = res.raw.map_trips
+            out = {"sweep_megakernel_full_f64": trips if full else 0,
+                   "sweep_megakernel_commit_f64": 0 if full else trips,
+                   "guarded_update_direction_f64": 0, "fused_value_grad_f64": n_chunks,
+                   "direction_f64": n_chunks, "pso_step_update_f64": pso_iters}
+            if full:
+                out["fused_value_f64"] = 0
             return out
         return counts
 
     cells = {}
     for cell, src in F64_CELLS.items():
         cfg = {k: v for k, v in base[src].items()
-               if k not in ("must", "exact", "compare", "cluster")}
+               if k not in ("must", "may", "exact", "check", "cluster")}
+        if cell in F64_BATCHED_CELLS or cell == "meanfield-f64":
+            cfg.pop("compare", None)
         cfg["opts"] = dataclasses.replace(base[src]["opts"], dtype="float64")
         cells[cell] = cfg
-    cells["paper-f64"]["exact"] = exact(8, 4)
-    cells["scale-f64"]["exact"] = exact(5, 1)
-    cells["dijet-f64"]["exact"] = exact(10, 1, fused=False)
+    cells["paper-f64"]["exact"] = batched(8, 4)
+    cells["scale-f64"]["exact"] = batched(5, 1)
+    cells["dijet-f64"]["exact"] = batched(10, 1, fused=False)
+    cells["per_lane-paper-f64"]["exact"] = per_lane(8)
+    cells["per_lane-scale-f64"]["exact"] = per_lane(5)
+    cells["wolfe-paper-f64"]["exact"] = per_lane(8)
+    cells["megakernel-paper-f64"]["exact"] = megakernel(8, 4, full=True)
+    cells["megakernel-scale-f64"]["exact"] = megakernel(5, 1, full=True)
+    cells["megakernel-ladder-scale-f64"]["exact"] = megakernel(5, 1, full=False)
+    cells["megakernel-ladder-scale-f64"]["must"] = ("fused_value_f64",)
+    cells["meanfield-f64"]["exact"] = batched(0, 8, meanfield_iters=5)
+    cells["sequential-f64"]["must"] = ("bfgs_update_f64", "direction_f64")
     return cells
 
 
 def f64_cases(solve_cfg, gen):
-    """Phase 3 inputs of the float64 cells, in float64: kernel_cases at each
-    cell's shapes (the dijet cell's in sphere's box: it runs no B1)."""
+    """Phase 3 inputs of the float64 batched cells, in float64: kernel_cases
+    at each cell's shapes (the dijet cell's in sphere's box: it runs no B1)."""
     import torch
 
-    return {cell: kernel_cases(cfg, cfg.get("objective", "sphere"), cfg["dim"], gen,
-                               torch.float64)
-            for cell, cfg in solve_cfg.items()}
+    return {cell: kernel_cases(solve_cfg[cell], solve_cfg[cell].get("objective", "sphere"),
+                               solve_cfg[cell]["dim"], gen, torch.float64)
+            for cell in F64_BATCHED_CELLS}
 
 
 def check_f64_kernels(cases, solve_cfg):
@@ -1217,55 +1304,14 @@ def check_f64_fused_dims(gen):
                   "value-only f == value+grad f bitwise; ackley's gradient NaN at the origin")
 
 
-def check_f64_updates(cases):
-    """Phase 3, float64 B2 at every F64_UPDATE_SHAPES shape, in the variant
-    its D selects: against the plain version at TOL64, H' == H bitwise on
-    the ρ = 0 lanes, and ALONE_LANES lanes launched alone bitwise equal to
-    the same lanes inside the batch. Returns {(kernel, label): errors}."""
-    import torch
-    from repro_torch.kernels import bfgs_update as bu
-    from repro_torch.kernels import ops
-
-    errors = {}
-    for label, c in cases.items():
-        B, D = c["g_new"].shape
-        variant = ops.update_variant(D, torch.float64)
-        lo = max(0, min(5, B - ALONE_LANES))
-        alone = slice(lo, min(B, lo + ALONE_LANES))
-        args = (c["H"], c["dx"], c["dg"], c["g_new"], c["rho"])
-        got = bu.guarded_update_direction_cuda(*args)
-        want = bu.guarded_update_direction_plain(*args)
-        errs = [compare(k, p, TOL64, TOL64) for k, p in zip(got, want)]
-        require(all(e[2] for e in errs) and got[0].dtype == torch.float64,
-                f"update float64 {label} ({variant}): B2 disagrees with plain "
-                f"{[e[:2] for e in errs]}")
-        errors["guarded_update_direction", label] = (max(e[0] for e in errs),
-                                                     max(e[1] for e in errs), True)
-        sub = bu.guarded_update_direction_cuda(*(t[alone].contiguous() for t in args))
-        require(all(bitwise_equal(k[alone], part) for k, part in zip(got, sub)),
-                f"update float64 {label} ({variant}): lanes {lo}..{alone.stop - 1} alone "
-                "differ from the same lanes in the batch")
-        frozen = c["frozen"]
-        require(bitwise_equal(got[0][frozen], c["H"][frozen]),
-                f"update float64 {label} ({variant}): H' != H bitwise on rho = 0 lanes")
-        del got, want, sub
-        torch.cuda.synchronize()
-        print(f"check update float64 {label} B={B} D={D} ({variant}): max_abs_err "
-              f"{errors['guarded_update_direction', label][0]:.3g}; H' == H bitwise on "
-              f"{int(frozen.sum())} rho = 0 lanes; lanes {lo}..{alone.stop - 1} alone == "
-              "in batch bitwise")
-    return errors
-
-
 def check_f64_refusals():
-    """Phase 4g: every float64 path still to port (ROADMAP A19b) raises
+    """Phase 4g: every float64 path still to port (ROADMAP A19b-2) raises
     NotImplementedError naming A19b on the card, as on the CPU, before any
     kernel launches."""
     import torch
-    from repro_torch.core import (BatchedDenseBFGS, EngineOptions, MeanFieldPSOOptions,
-                                  PSOOptions, ZeusOptions, get_objective, open_multistart,
-                                  run_multistart, sequential_zeus, zeus)
-    from repro_torch.core.bfgs import serial_bfgs
+    from repro_torch.core import (BatchedDenseBFGS, EngineOptions, PSOOptions,
+                                  ZeusOptions, get_objective, open_multistart,
+                                  run_multistart, zeus)
     from repro_torch.kernels import ops
     from repro_torch.launch.faults import FaultPlan
     from repro_torch.serve.service import ProblemRegistry
@@ -1278,26 +1324,19 @@ def check_f64_refusals():
         return lambda: zeus(obj.fn, 2, obj.lower, obj.upper, opts, device="cuda")
 
     paths = {
-        "megakernel": solve(sweep_mode="megakernel"),
-        "per_lane": solve(sweep_mode="per_lane"),
         "lbfgs": solve(solver="lbfgs"),
-        "meanfield": solve(phase1="meanfield",
-                           meanfield=MeanFieldPSOOptions(n_particles=8, iter_pso=1)),
-        "ladder_len": solve(ladder_len=4),
+        "lbfgs per_lane": solve(solver="lbfgs", sweep_mode="per_lane"),
         "compact_every": solve(compact_every=1),
         "repack_every": solve(repack_every=1, lane_chunk=4),
         "schedule": solve(schedule="auto"),
+        "replay": solve(schedule="replay", schedule_plans=(0,)),
         "retry": solve(retry_budget=1),
         "fault_plan": solve(fault_plan=FaultPlan(preempt_at_sweep=3)),
         "checkpoint": solve(checkpoint_every=2, checkpoint_dir="unused"),
         "resume": lambda: zeus(obj.fn, 2, obj.lower, obj.upper,
                                ZeusOptions(dtype="float64"), device="cuda", resume="unused"),
-        "engine megakernel": lambda: run_multistart(
-            obj.fn, x0, BatchedDenseBFGS(), EngineOptions(sweep_mode="megakernel"),
-            device="cuda"),
-        "sequential_zeus": lambda: sequential_zeus(
-            obj.fn, 0, 2, -1.0, 1.0, ZeusOptions(dtype="float64"), device="cuda"),
-        "serial_bfgs": lambda: serial_bfgs(obj.fn, x0[0], device="cuda"),
+        "engine compact": lambda: run_multistart(
+            obj.fn, x0, BatchedDenseBFGS(), EngineOptions(compact_every=1), device="cuda"),
         "open_multistart": lambda: open_multistart(
             obj.fn, x0, BatchedDenseBFGS(), EngineOptions(lane_deadlines=True),
             device="cuda"),
@@ -1316,8 +1355,144 @@ def check_f64_refusals():
     torch.cuda.synchronize()
     launched = {k: n for k, n in ops.launch_counts().items() if n}
     require(not launched, f"a refused float64 path launched kernels: {launched}")
-    print(f"check float64 refusals: all {len(paths)} A19b paths raise NotImplementedError "
+    print(f"check float64 refusals: all {len(paths)} A19b-2 paths raise NotImplementedError "
           "naming A19b on the card, no kernel launched")
+
+
+def f64_megakernel_cases(solve_cfg, gen):
+    """float64 inputs of B5/B5b (megakernel_case): at the float64 megakernel
+    cells' shapes (the paper shape for all four objectives, the scale shape
+    in ackley, timed) and at F64_MEGAKERNEL_EDGES."""
+    import torch
+    from repro_torch.kernels import fused_obj
+
+    f64 = torch.float64
+    cases = {}
+    for cell in ("megakernel-paper-f64", "megakernel-scale-f64"):
+        cfg = solve_cfg[cell]
+        C = cfg["opts"].lane_chunk or cfg["opts"].pso.n_particles
+        names = (fused_obj.FUSED_OBJECTIVES if cell == "megakernel-paper-f64"
+                 else (cfg["objective"],))
+        for objective in names:
+            cases[cell, objective] = megakernel_case(
+                objective, C, cfg["dim"], gen, objective == cfg["objective"], f64)
+    for dim in F64_MEGAKERNEL_EDGES:
+        cases[f"edge D={dim}", "ackley"] = megakernel_case("ackley", F64_EDGE_LANES, dim,
+                                                           gen, False, f64)
+    return cases
+
+
+def staged_f64_sweep(c, alpha=None):
+    """What the staged float64 kernels compute for a megakernel case: B1a
+    f64 on the K-rung trial rows (built as the staged ladder builds them),
+    the first accepted rung against c's thresholds (the staged accept),
+    x' = x + α·p and B1b f64 there; with `alpha`, the commit at that α alone.
+    Returns (x', f', g', α, rung), rung None with `alpha`."""
+    from repro_torch.kernels import fused_obj, sweep_megakernel
+
+    name, X, P = c["objective"], c["X"], c["P"]
+    rung = None
+    if alpha is None:
+        K, (C, D) = c["rhs"].shape[0], X.shape
+        trials = X[None] + c["alphas"][:, None, None] * P[None]
+        F = fused_obj.value_grad_cuda(name, trials.reshape(K * C, D), with_grad=False)[0]
+        alpha, rung = sweep_megakernel._accept(F.reshape(K, C), c["rhs"], c["alphas"],
+                                               c["exhaust"])
+    x_new = X + alpha[:, None] * P
+    f_new, g_new = fused_obj.value_grad_cuda(name, x_new)
+    return x_new, f_new, g_new, alpha, rung
+
+
+def check_f64_megakernels(cases):
+    """Phase 3, float64 B5 and B5b: against the plain versions (rung and α
+    equal, x', f', g' within TOL64, H' and p' within 1e-10 of a lane's
+    scale on the well-conditioned lanes, H' == H bitwise on the frozen
+    lanes), and bitwise the staged float64 kernels' on every lane: B5's
+    rung, α, x', f' and g' those of B1a f64's ladder, the staged accept and
+    B1b f64 at x'; B5b's x', f', g' those of B1b f64 at x + α·p. Returns
+    {(kernel, cell): errors} for the timed cases."""
+    import types
+
+    import torch
+    from repro_torch.kernels import fused_obj, ops, sweep_megakernel
+
+    f64 = torch.float64
+    errors = {}
+    for (cell, objective), c in cases.items():
+        args = (objective, c["X"], c["P"], c["G"], c["H"], c["active"])
+        C, dim = c["X"].shape
+        variant = {full: "single-read" if dim <= ops.megakernel_smem_dim(K_LADDER, full, f64)
+                   else "streaming" for full in (True, False)}
+        kf = sweep_megakernel.sweep_megakernel_full_cuda(*args, c["rhs"], c["alphas"],
+                                                         c["exhaust"])
+        pf = sweep_megakernel.sweep_megakernel_full_plain(*args, c["rhs"], c["alphas"],
+                                                          c["exhaust"])
+        sx, sf, sg, salpha, srung = staged_f64_sweep(c)
+        require(torch.equal(kf[6], srung) and bitwise_equal(kf[5], salpha),
+                f"{cell}/{objective}: float64 B5's rung or α differs from the staged "
+                "kernels'")
+        # against the plain version, a differing rung must be a knife edge
+        odd = kf[6] != pf[6]
+        for i in torch.nonzero(odd).flatten().tolist():
+            r = min(int(kf[6][i]), int(pf[6][i]))
+            trial = (c["X"][i] + c["alphas"][r] * c["P"][i])[None]
+            f_r = fused_obj.value_grad_plain(objective, trial, with_grad=False)[0][0]
+            rhs = c["rhs"][r, i]
+            margin = float((f_r - rhs).abs() / max(1.0, float(rhs.abs())))
+            require(margin <= KNIFE_EDGE64, f"{cell}/{objective}: float64 B5 lane {i} "
+                    f"accepts rung {int(kf[6][i])} vs plain {int(pf[6][i])}, margin "
+                    f"{margin:.3g}")
+        keep = ~odd
+        results = {}
+        for kname, k, p, staged in (
+                ("sweep_megakernel_full", kf, pf, (sx, sf, sg)),
+                ("sweep_megakernel_commit",
+                 sweep_megakernel.sweep_megakernel_commit_cuda(*args, pf[5]),
+                 sweep_megakernel.sweep_megakernel_commit_plain(*args, pf[5]),
+                 staged_f64_sweep(c, pf[5])[:3])):
+            require(all(t.dtype is f64 for t in k[:5]), f"{cell}/{objective}: {kname} "
+                    "float64 outputs are not float64")
+            require(all(bitwise_equal(torch.nan_to_num(a), torch.nan_to_num(b))
+                        and torch.equal(torch.isfinite(a), torch.isfinite(b))
+                        for a, b in zip(k[:3], staged)),
+                    f"{cell}/{objective}: float64 {kname}'s x', f', g' are not bitwise the "
+                    "staged kernels'")
+            rows = keep if kname == "sweep_megakernel_full" else torch.ones_like(keep)
+            ex, ef, eg = (compare(k[j][rows], p[j][rows], TOL64, TOL64) for j in range(3))
+            require(ex[2] and ef[2] and eg[2], f"{cell}/{objective}: float64 {kname} "
+                    f"x'/f'/g' disagree (x {ex[:2]}, f {ef[:2]}, g {eg[:2]})")
+            frozen = ~c["active"]
+            require(torch.equal(k[3][frozen], c["H"][frozen]),
+                    f"{cell}/{objective}: float64 {kname} H' != H bitwise on frozen lanes")
+            require(all(torch.equal(torch.isfinite(k[j]), torch.isfinite(p[j]))
+                        for j in range(5)), f"{cell}/{objective}: float64 {kname} "
+                    "non-finite entries differ")
+            pre = types.SimpleNamespace(x=c["X"], g=c["G"], direction_state=c["H"],
+                                        converged=frozen, failed=torch.zeros_like(frozen))
+            kl = types.SimpleNamespace(x=k[0], g=k[2], direction_state=k[3])
+            finite = torch.isfinite(p[3]).all(2).all(1) & torch.isfinite(p[4]).all(1)
+            well = rows & finite & well_conditioned(pre, kl, types.SimpleNamespace(g=p[2]), dim,
+                                             eps=2.0 ** -53, tol=F64_STATE_TOL)
+            eh, okh = close_per_lane(k[3][well], p[3][well], F64_STATE_TOL)
+            ep, okp = close_per_lane(k[4][well], p[4][well], F64_STATE_TOL)
+            require(okh and okp, f"{cell}/{objective}: float64 {kname} H'/p' differ "
+                    f"({eh:.3g}, {ep:.3g} of lane scale)")
+            print(f"check {cell} {objective} {kname} float64 C={C} D={dim} "
+                  f"({variant[kname.endswith('full')]}): rung and α equal to the staged "
+                  f"kernels' on all lanes, to plain but {int(odd.sum())} knife edges; x', "
+                  f"f', g' bitwise the staged kernels' on all {C} lanes; "
+                  f"max_abs_err vs plain x {ex[0]:.3g} f {ef[0]:.3g} g {eg[0]:.3g}; H'/p' "
+                  f"{eh:.3g}/{ep:.3g} of lane scale on {int(well.sum())} well-conditioned "
+                  "lanes")
+            results[kname] = (max(ex[0], ef[0], eg[0]), 0.0, True)
+        if c["timed"]:
+            for kname, e in results.items():
+                for kcell in F64_KERNEL_CELLS[kname]:
+                    if F64_MEGAKERNEL_CASE[kcell] == cell:
+                        errors[kname, kcell] = e
+        del kf, pf
+        torch.cuda.synchronize()
+    return errors
 
 
 def time_f64_kernels(cases, upd_cases, solve_cfg):
@@ -1373,11 +1548,64 @@ def time_f64_kernels(cases, upd_cases, solve_cfg):
     return timings
 
 
-def f64_entries(launches, errors, timings, solve_cfg):
+def time_f64_path_kernels(upd_cases, sw_cases, mk_cases):
+    """Phase 5, float64 B7a and B7b (at the per-lane cells' update shapes),
+    B6 (anisotropic, at the mean-field shape) and B5/B5b (at the megakernel
+    cells' shapes): kernel and plain version in turns, beside both bounds
+    (bytes at 8 bytes an element, fp64 operations over 34 TFLOP/s); no
+    single PyTorch call computes any of them."""
+    from repro_torch.kernels import meanfield_step, sweep_megakernel
+
+    timings = {}
+
+    def timed(kname, cell, kern, plain, bytes_ops):
+        p1, k1, k2, p2 = (time_ms(f) for f in (plain, kern, kern, plain))
+        t_bytes, t_ops = bytes_ops
+        bound_ms, bound_by = larger(t_bytes, t_ops)
+        timings[kname, cell] = dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=None,
+                                    bound_ms=bound_ms, bound_by=bound_by, bytes_ms=t_bytes,
+                                    ops_ms=t_ops)
+        print(f"time {cell} {kname} float64: kernel {k1:.4f}/{k2:.4f} ms, plain "
+              f"{p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; bytes "
+              f"{t_bytes:.4f}, fp64 operations {t_ops:.4f})")
+
+    for kname in ("bfgs_update", "bfgs_update_direction"):
+        for cell in F64_KERNEL_CELLS[kname]:
+            u = upd_cases[F64_UPDATE_SHAPE_OF[cell]]
+            kern, plain, args = update_calls(u)[kname]
+            B, D = u["g_new"].shape
+            timed(kname, cell, lambda k=kern, a=args: k(*a), lambda p=plain, a=args: p(*a),
+                  update_bytes_ops_ms(kname, B, D, 8, FP64_OPS_PER_S))
+    c = sw_cases["meanfield"]
+    args = (c["x"], c["v"], c["xbar"], c["xi"], 0.5, 1.2, 0.3, "anisotropic")
+    timed("meanfield_step_update", "meanfield-f64",
+          lambda: meanfield_step.meanfield_step_cuda(*args),
+          lambda: meanfield_step.meanfield_step_plain(*args), meanfield_bytes_ops_ms(c))
+    for kname in ("sweep_megakernel_full", "sweep_megakernel_commit"):
+        for cell in F64_KERNEL_CELLS[kname]:
+            c = next(c for (cc, _), c in mk_cases.items()
+                     if cc == F64_MEGAKERNEL_CASE[cell] and c["timed"])
+            args = (c["objective"], c["X"], c["P"], c["G"], c["H"], c["active"])
+            if kname == "sweep_megakernel_full":
+                extra = (c["rhs"], c["alphas"], c["exhaust"])
+                kern = sweep_megakernel.sweep_megakernel_full_cuda
+                plain = sweep_megakernel.sweep_megakernel_full_plain
+            else:
+                extra = (sweep_megakernel.sweep_megakernel_full_plain(
+                    *args, c["rhs"], c["alphas"], c["exhaust"])[5],)
+                kern = sweep_megakernel.sweep_megakernel_commit_cuda
+                plain = sweep_megakernel.sweep_megakernel_commit_plain
+            timed(kname, cell, lambda k=kern, e=extra, a=args: k(*a, *e),
+                  lambda p=plain, e=extra, a=args: p(*a, *e), megakernel_bytes_ops_ms(kname, c))
+    return timings
+
+
+def f64_entries(launches, errors, timings, solve_cfg, enqueue_us):
     """The float64 kernels' entries of the kernels line."""
     import torch
     from repro_torch.kernels import ops
 
+    f64 = torch.float64
     entries = []
     for kname, cells in F64_KERNEL_CELLS.items():
         source, replaces = SOURCES[kname]
@@ -1388,19 +1616,25 @@ def f64_entries(launches, errors, timings, solve_cfg):
                 dtype="float64", launches=launches[cell][f"{kname}_f64"],
                 max_abs_err=errors[kname, cell][0], ms=t["ms"], plain_ms=t["plain_ms"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"], bytes_ms=t["bytes_ms"],
-                ops_ms=t["ops_ms"], library_ms=t["library_ms"]))
+                ops_ms=t["ops_ms"], library_ms=t["library_ms"],
+                enqueue_us=enqueue_us[kname]))
             dim = solve_cfg[cell]["dim"]
             if kname in ("fused_value", "fused_value_grad"):
-                entries[-1]["variant"] = ops.fused_obj_variant(dim, torch.float64)
-                entries[-1]["layout"] = f"{fused_layout(dim, torch.float64)} at D = {dim}"
-            elif kname == "guarded_update_direction":
-                entries[-1]["variant"] = ops.update_variant(dim, torch.float64)
+                entries[-1]["variant"] = ops.fused_obj_variant(dim, f64)
+                entries[-1]["layout"] = f"{fused_layout(dim, f64)} at D = {dim}"
+            elif kname in UPDATE_KERNELS:
+                entries[-1]["variant"] = ops.update_variant(dim, f64)
+            elif kname.startswith("sweep_megakernel"):
+                full = kname == "sweep_megakernel_full"
+                entries[-1]["variant"] = ("single-read" if dim <= ops.megakernel_smem_dim(
+                    K_LADDER, full, f64) else "streaming")
     return entries
 
 
 def float64_phases(gen):
-    """Phases 3, 4, 4c and 5 of the float64 path (ROADMAP A19a). Returns the
-    kernels line's float64 entries and the cells' launch counts."""
+    """Phases 3, 4, 4c and 5 of the float64 path (ROADMAP A19a, A19b-1).
+    Returns the kernels line's float64 entries and the cells' launch
+    counts."""
     import torch
 
     cfg = solves_f64()
@@ -1409,22 +1643,36 @@ def float64_phases(gen):
     check_f64_fused_dims(gen)
     upd_cases = update_cases(torch.Generator(device="cuda").manual_seed(64),
                              F64_UPDATE_SHAPES, torch.float64)
-    errors.update(check_f64_updates(upd_cases))
+    upd_errors = check_updates(upd_cases, torch.float64)
+    errors.update({(k, cell): upd_errors[k, shape] for cell, shape in F64_UPDATE_SHAPE_OF.items()
+                   for k in UPDATE_KERNELS if cell in F64_KERNEL_CELLS[k]})
+    sw_cases = swarm_cases(gen, torch.float64)
+    errors.update(check_meanfield_step(sw_cases, torch.float64))
+    mk_cases = f64_megakernel_cases(cfg, gen)
+    errors.update(check_f64_megakernels(mk_cases))
     check_f64_refusals()
-    launches, _, _ = run_solves(cfg)  # phase 4, the float64 cells
+    launches, _, _ = run_solves(cfg)  # phase 4 (and 4b), the float64 cells
     profile_solves(cfg)  # phase 4c
     timings = time_f64_kernels(cases, upd_cases, cfg)  # phase 5
-    entries = f64_entries(launches, errors, timings, cfg)
-    del cases, upd_cases
+    timings.update(time_f64_path_kernels(upd_cases, sw_cases, mk_cases))
+    enqueue_us = time_enqueue(cases, upd_cases, mk_cases, gen, f64=True)
+    entries = f64_entries(launches, errors, timings, cfg, enqueue_us)
+    del cases, upd_cases, sw_cases, mk_cases
     torch.cuda.empty_cache()
     return entries, launches
 
 
-def check_meanfield_step(cases):
-    """Phase 3, B6 against its plain version in both noise modes."""
+def check_meanfield_step(cases, dtype=None):
+    """Phase 3, B6 against its plain version in both noise modes (at TOL64
+    in float64), the anisotropic result bitwise. `dtype` is the cases'
+    (float32 unless given); float64 errors are keyed by the cell name with
+    "-f64"."""
     import torch
     from repro_torch.kernels import meanfield_step
 
+    f64 = dtype is torch.float64
+    tol = (TOL64, TOL64) if f64 else (RTOL, ATOL)
+    tag = "-f64" if f64 else ""
     errors = {}
     for cell in ("meanfield", "meanfield-ragged"):
         c = cases[cell]
@@ -1434,39 +1682,43 @@ def check_meanfield_step(cases):
             outs = meanfield_step.meanfield_step_cuda(*args)
             plains = meanfield_step.meanfield_step_plain(*args)
             for k, p in zip(outs, plains):
-                e = compare(k, p)
-                require(e[2], f"{cell} {noise}: meanfield_step disagrees {e[:2]}")
+                require(k.dtype is p.dtype, f"{cell}{tag} {noise}: B6 returned {k.dtype}")
+                e = compare(k, p, *tol)
+                require(e[2], f"{cell}{tag} {noise}: meanfield_step disagrees {e[:2]}")
                 worst = max(worst, e[0])
                 if noise == "anisotropic":
                     fin = torch.isfinite(p)
                     require(torch.equal(k[fin], p[fin]) and torch.equal(fin, torch.isfinite(k)),
-                            f"{cell}: anisotropic meanfield_step not bitwise equal")
-            print(f"check {cell} meanfield_step {noise} N={c['x'].shape[0]} D="
+                            f"{cell}{tag}: anisotropic meanfield_step not bitwise equal")
+            print(f"check {cell}{tag} meanfield_step {noise} N={c['x'].shape[0]} D="
                   f"{c['x'].shape[1]}: max_abs_err {worst:.3g}"
                   + (", bitwise equal" if noise == "anisotropic" else ""))
-        errors["meanfield_step_update", cell] = (worst, 0.0, True)
+        errors["meanfield_step_update", cell + tag] = (worst, 0.0, True)
     torch.cuda.synchronize()
     return errors
 
 
-def megakernel_case(objective, C, dim, gen, timed=False):
+def megakernel_case(objective, C, dim, gen, timed=False, dtype=None):
     """Inputs of B5/B5b for C lanes of D, as a sweep finds them: starts in
     the box, H = I + a small symmetric term, g = ∇f and the descent p = −Hg,
     every seventh lane frozen, lane 0 at the origin with p = 0 (ackley's
     gradient is NaN there), lane 1 uphill (p = g) so that its ladder may run
-    out, and the Armijo thresholds as the staged ladder computes them."""
+    out, and the Armijo thresholds as the staged ladder computes them; in
+    `dtype` (float32 unless given)."""
+    import numpy as np
     import torch
     from repro_torch.core import get_objective
     from repro_torch.core.linesearch import exhaustion_alpha, ladder_thresholds
     from repro_torch.kernels import direction, fused_obj
 
+    dt = torch.float32 if dtype is None else dtype
     obj = get_objective(objective)
     X = obj.lower + (obj.upper - obj.lower) * torch.rand(
-        C, dim, generator=gen, device="cuda")
+        C, dim, generator=gen, device="cuda", dtype=dt)
     X[0] = 0.0
     F, G = fused_obj.value_grad_plain(objective, X)
-    A = 0.1 * torch.randn(C, dim, dim, generator=gen, device="cuda") / math.sqrt(dim)
-    H = (torch.eye(dim, device="cuda") + 0.5 * (A + A.transpose(1, 2))).contiguous()
+    A = 0.1 * torch.randn(C, dim, dim, generator=gen, device="cuda", dtype=dt) / math.sqrt(dim)
+    H = (torch.eye(dim, device="cuda", dtype=dt) + 0.5 * (A + A.transpose(1, 2))).contiguous()
     P = direction.direction_plain(H, torch.nan_to_num(G))
     P[0] = 0.0
     P[1] = G[1]
@@ -1474,7 +1726,8 @@ def megakernel_case(objective, C, dim, gen, timed=False):
     alphas, rhs = ladder_thresholds(F, G, P, 0.3, K_LADDER)
     return dict(objective=objective, X=X, P=P, G=G, H=H,
                 active=active, rhs=rhs, alphas=alphas,
-                exhaust=exhaustion_alpha(K_LADDER), timed=timed)
+                exhaust=exhaustion_alpha(K_LADDER, dtype=np.float64 if dt is torch.float64
+                                         else np.float32), timed=timed)
 
 
 def megakernel_cases(solve_cfg, gen, cells=("megakernel-paper", "megakernel-scale"),
@@ -1747,18 +2000,19 @@ def close_per_lane(got, ref, tol=STATE_TOL):
     return worst, worst <= tol
 
 
-def well_conditioned(pre, kl, pl, dim):
+def well_conditioned(pre, kl, pl, dim, eps=2.0 ** -24, tol=STATE_TOL):
     """(B,) lanes whose H update is well enough conditioned to hold the
     kernel path's H' (and p') to the plain path's.
 
     H' and p' hang on the secant pair. The two paths' own rounding of g'
     moves ρ = 1/δxᵀδg by η = |δx|·|Δg'| / |δxᵀδg| (relative), and one D-term
-    sum in another order moves u = Hδg by D·2⁻²⁴ of |H||δg|; H' then moves
+    sum in another order moves u = Hδg by D·eps of |H||δg| (eps the unit
+    roundoff, 2⁻²⁴ in float32, 2⁻⁵³ in float64); H' then moves
     by about that relative perturbation times the update's terms
     2|ρ||u||δx| + (2ρ²|s| + |ρ|)|δx|², |u| and |s| taken at their
     absolute-value bounds. Where that alone exceeds a tenth of the
-    tolerance, the update is too ill-conditioned to hold either path to the
-    other on H' and p'."""
+    tolerance `tol`, the update is too ill-conditioned to hold either path
+    to the other on H' and p'."""
     import torch
 
     dX, dG = kl.x - pre.x, kl.g - pre.g
@@ -1766,14 +2020,14 @@ def well_conditioned(pre, kl, pl, dim):
     updated = ~(pre.converged | pre.failed) & torch.isfinite(curv) & (curv > 1e-10)
     eta = torch.where(updated, torch.linalg.vector_norm(dX, dim=-1)
                       * torch.linalg.vector_norm(kl.g - pl.g, dim=-1) / curv, 0.0)
-    pert = torch.clamp(eta, min=dim * 2.0 ** -24)
+    pert = torch.clamp(eta, min=dim * eps)
     u_abs = torch.sum(pre.direction_state.abs() * dG.abs()[:, None, :], dim=-1)
     s_abs = torch.sum(dG.abs() * u_abs, dim=-1)
     rho = torch.where(updated, 1.0 / curv, 0.0).abs()
     dxm = dX.abs().amax(dim=-1)
     terms = 2 * rho * u_abs.amax(dim=-1) * dxm + (2 * rho * rho * s_abs + rho) * dxm * dxm
     scale = kl.direction_state.abs().amax(dim=(1, 2)).clamp_min(1.0)
-    return ~(pert * terms / scale > 0.1 * STATE_TOL)
+    return ~(pert * terms / scale > 0.1 * tol)
 
 
 def compare_sweeps(sname, cfg):
@@ -1794,7 +2048,7 @@ def compare_sweeps(sname, cfg):
     opts = cfg["opts"]
     gen = torch.Generator(device="cuda").manual_seed(cfg["seed"])
     starts = run_pso(obj.fn, cfg["dim"], obj.lower, obj.upper, opts.pso,
-                     device="cuda", generator=gen).x
+                     device="cuda", generator=gen, dtype=opts.dtype).x
     _, eopts = phase2_setup(opts)
     k_bobj, k_strat = as_batched(obj.fn), BatchedDenseBFGS()
     mega = cfg["compare"] == "megakernel"
@@ -1806,7 +2060,7 @@ def compare_sweeps(sname, cfg):
         paths = ("kernels", "plain")
     kl = batch_lanes_init(k_bobj, k_strat, starts, eopts.theta)
     B = starts.shape[0]
-    alphas = torch.as_tensor(ladder_alphas(eopts.ls_iters, "float32"), device="cuda")
+    alphas = torch.as_tensor(ladder_alphas(eopts.ls_iters, opts.dtype), device="cuda")
     knife = ill = bitwise = stepped = 0
     worst = {}
 
@@ -1847,6 +2101,12 @@ def compare_sweeps(sname, cfg):
                     & (bits(kl.g) == bits(pl.g)).all(1))
             bitwise += int((same & active).sum())
             stepped += int(active.sum())
+            # float64: B5's f′/g′ are B1b f64's and its accepts B1a f64's
+            # (the same bodies), so every active lane is bitwise the staged
+            # kernels' (ROADMAP A19b-1's contract)
+            require(opts.dtype != "float64" or bool((same | ~active).all()),
+                    f"{sname} sweep {sweep}: x', f', g' of the float64 megakernel differ "
+                    f"from the staged kernels' on {int((~same & active).sum())} active lanes")
         for field in ("x", "f", "g"):
             e, ok = close_per_lane(getattr(kl, field)[keep], getattr(pl, field)[keep])
             require(ok, f"{sname} sweep {sweep}: {field} differs ({e:.3g} of lane scale)")
@@ -1888,14 +2148,14 @@ def compare_per_lane_sweeps(sname, cfg):
     opts = cfg["opts"]
     gen = torch.Generator(device="cuda").manual_seed(cfg["seed"])
     starts = run_pso(obj.fn, cfg["dim"], obj.lower, obj.upper, opts.pso,
-                     device="cuda", generator=gen).x
+                     device="cuda", generator=gen, dtype=opts.dtype).x
     k_strat, eopts = phase2_setup(opts)
     require(k_strat.hessian_impl == "pallas", f"{sname}: not a B7a solve")
     p_strat = PlainDenseBFGS()
     pobj = per_lane_objective(obj.fn, eopts.ad_mode)
     vg_cost = grad_eval_cost(cfg["dim"], eopts.ad_mode)
     kl = lane_init(pobj.value_and_grad_batch, k_strat, starts, eopts.theta, eopts.ad_mode)
-    alphas = torch.as_tensor(ladder_alphas(eopts.ls_iters, "float32"), device="cuda")
+    alphas = torch.as_tensor(ladder_alphas(eopts.ls_iters, opts.dtype), device="cuda")
     knife = ill = 0
     worst = {}
     for sweep in range(SWEEPS_COMPARED):
@@ -3054,24 +3314,25 @@ def issue_bound_d128(sms, clock_mhz):
     return out
 
 
-def time_enqueue(cases, upd_cases, mk_cases, gen):
+def time_enqueue(cases, upd_cases, mk_cases, gen, f64=False):
     """Phase 5, the host's cost of one call of each kernel wrapper and of
     torch.bmm at the paper shapes (B6 on the paper swarm, 2048 × 5; B8 on a
     small bf16 case): ENQUEUE_CALLS calls back to back after a warm-up, with
     no synchronise, on the host clock, in two rounds. Each call's device
     work there is a few µs, so the launch queue does not fill and the clock
-    reads the host's enqueue. Returns µs a call, the lower of the rounds."""
+    reads the host's enqueue. With `f64`, the float64 wrappers on the
+    float64 paper cells' inputs (no B8). Returns µs a call, the lower of the
+    rounds."""
     import torch
     from repro_torch.kernels import (direction, flash_attention, fused_obj, meanfield_step,
                                      pso_step, sweep_megakernel)
 
-    c, u = cases["paper"], upd_cases["paper"]
-    m = mk_cases["megakernel-paper", "rastrigin"]
+    tag = "-f64" if f64 else ""
+    c, u = cases["paper" + tag], upd_cases["paper" + tag]
+    m = mk_cases["megakernel-paper" + tag, "rastrigin"]
     mk = (m["objective"], m["X"], m["P"], m["G"], m["H"], m["active"])
     alpha = m["alphas"][2].expand(m["X"].shape[0]).contiguous()
     x, v, _, xbar, xi, _ = c["pso"]
-    q, k, vv = (torch.randn(1, 128, 2, 64, generator=gen, device="cuda").to(torch.bfloat16)
-                for _ in range(3))
     calls = {
         "fused_value": lambda: fused_obj.value_grad_cuda("rastrigin", c["ladder"], False),
         "fused_value_grad": lambda: fused_obj.value_grad_cuda("rastrigin", c["commit"]),
@@ -3085,8 +3346,11 @@ def time_enqueue(cases, upd_cases, mk_cases, gen):
             *mk, m["rhs"], m["alphas"], m["exhaust"]),
         "sweep_megakernel_commit": lambda: sweep_megakernel.sweep_megakernel_commit_cuda(
             *mk, alpha),
-        "flash_attention": lambda: flash_attention.flash_attention_cuda(q, k, vv),
     }
+    if not f64:
+        q, k, vv = (torch.randn(1, 128, 2, 64, generator=gen, device="cuda")
+                    .to(torch.bfloat16) for _ in range(3))
+        calls["flash_attention"] = lambda: flash_attention.flash_attention_cuda(q, k, vv)
     rounds = {name: [] for name in calls}
     for _ in range(2):
         for name, fn in calls.items():
@@ -3099,8 +3363,8 @@ def time_enqueue(cases, upd_cases, mk_cases, gen):
             rounds[name].append((time.perf_counter() - t0) / ENQUEUE_CALLS * 1e6)
             torch.cuda.synchronize()
     for name, us in rounds.items():
-        print(f"enqueue {name}: {us[0]:.2f} / {us[1]:.2f} µs a call over {ENQUEUE_CALLS} calls, "
-              "no synchronise (host clock)")
+        print(f"enqueue {name}{' float64' if f64 else ''}: {us[0]:.2f} / {us[1]:.2f} µs a "
+              f"call over {ENQUEUE_CALLS} calls, no synchronise (host clock)")
     return {name: min(us) for name, us in rounds.items()}
 
 
@@ -3218,21 +3482,28 @@ def megakernel_bounds(kname, c):
     (and α and the rung); the trial fan's objective terms (B5), the value
     and gradient at x', the step, the pairs, δxᵀδg, and the update's
     12·D² + p's 2·D² per lane."""
+    return larger(*megakernel_bytes_ops_ms(kname, c))
+
+
+def megakernel_bytes_ops_ms(kname, c):
+    """(bytes ms, operations ms) of megakernel_bounds, at the case's element
+    size and the type's peak."""
+    import torch
+
     C, D = c["X"].shape
     K = c["rhs"].shape[0]
-    f4 = 4
+    f4 = c["X"].element_size()
+    peak = FP64_OPS_PER_S if c["X"].dtype is torch.float64 else FP32_OPS_PER_S
     value = {"sphere": 2, "rastrigin": 6, "rosenbrock": 8, "ackley": 5}[c["objective"]]
     grad = {"sphere": 1, "rastrigin": 5, "rosenbrock": 9, "ackley": 6}[c["objective"]]
     nbytes = 2 * C * D * D * f4 + 6 * C * D * f4 + C * f4 + C
     ops = C * (D * (value + grad) + 8 * D + 14 * D * D)
     if kname == "sweep_megakernel_full":
-        nbytes += K * C * f4 + K * f4 + 2 * C * f4
+        nbytes += K * C * f4 + K * f4 + C * f4 + C * 4  # rhs, ladder, α, int32 rung
         ops += K * C * D * (2 + value)
     else:
         nbytes += C * f4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
 
 
 def time_megakernels(cases):

@@ -32,23 +32,23 @@ def check_dtype(dtype) -> torch.dtype:
     return dt
 
 
-def refuse_float64(dtype, opts=None, *, solver: str = "bfgs", phase1: str = "pso",
-                   resume=None, entry: Optional[str] = None) -> None:
+def refuse_float64(dtype, opts=None, *, solver: str = "bfgs", resume=None,
+                   entry: Optional[str] = None) -> None:
     """Raise NotImplementedError naming ROADMAP A19b when a float64 solve
-    asks for a path whose float64 kernels are not ported yet.
+    asks for a path that does not run in float64 yet.
 
-    float64 runs phase 1 as PSO and phase 2 as dense BFGS on the batched
-    sweep (sweep_mode="batched", static schedule, full Armijo ladder, with
-    or without lane_chunk): kernels B1a/B1b, B2, B3 and B4 have double
-    instantiations. Everything else is refused here, from the options alone
-    and before anything runs, so the CPU and the card refuse the same
-    solves: sweep_mode "megakernel" (B5/B5b; no fallback to the batched
-    sweep) and "per_lane" (B7a/B7b), solver "lbfgs", phase1 "meanfield"
-    (B6), ladder_len, compact_every, repack_every, a schedule other than
-    "static", retries, fault plans, checkpointing and resume, and the
-    entries named by `entry` (sequential_zeus, serial_bfgs, HostedSolve,
-    open_multistart, the solve service). `opts` is an EngineOptions (or any
-    object with its fields); float32 passes through untouched."""
+    float64 runs phase 1 as PSO or the mean-field swarm (B4, B6) and phase 2
+    as dense BFGS in every sweep mode: the batched sweep with the full or
+    the adaptive ladder (B1a/B1b, B2, B3), the megakernel (B5, B5b) and the
+    per-lane sweep (B3, B7a/B7b), with or without lane_chunk; and the
+    sequential baseline (serial_bfgs, sequential_zeus). Everything else is
+    refused here (A19b-2), from the options alone and before anything runs,
+    so the CPU and the card refuse the same solves: solver "lbfgs",
+    compact_every, repack_every, a schedule other than "static", retries,
+    fault plans, checkpointing and resume, lane_deadlines, and the entries
+    named by `entry` (HostedSolve, open_multistart, the solve service).
+    `opts` is an EngineOptions (or any object with its fields); float32
+    passes through untouched."""
     if check_dtype(dtype) is not torch.float64:
         return
     why = []
@@ -56,12 +56,8 @@ def refuse_float64(dtype, opts=None, *, solver: str = "bfgs", phase1: str = "pso
         why.append(entry)
     if solver != "bfgs":
         why.append(f"solver={solver!r}")
-    if phase1 != "pso":
-        why.append(f"phase1={phase1!r}")
     if opts is not None:
-        if opts.sweep_mode != "batched":
-            why.append(f"sweep_mode={opts.sweep_mode!r}")
-        for field in ("ladder_len", "compact_every", "repack_every", "retry_budget",
+        for field in ("compact_every", "repack_every", "retry_budget",
                       "checkpoint_every", "lane_deadlines"):
             if getattr(opts, field):
                 why.append(f"{field}={getattr(opts, field)!r}")
@@ -74,5 +70,5 @@ def refuse_float64(dtype, opts=None, *, solver: str = "bfgs", phase1: str = "pso
     if why:
         raise NotImplementedError(
             f"float64 with {', '.join(why)}: not ported yet (ROADMAP A19b); float64 "
-            "runs PSO and dense BFGS on the batched sweep (sweep_mode='batched', "
-            "static schedule, full ladder)")
+            "runs PSO or mean-field phase 1 and dense BFGS in every sweep mode "
+            "(static schedule, no retries, faults or checkpoints)")

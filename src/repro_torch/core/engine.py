@@ -649,12 +649,14 @@ def _sweep_epilogue(bobj, opts: EngineOptions, lanes: BatchLanes,
 # the CPU both kernels' plain versions compose the staged path's own plain
 # functions, so the two sweeps are array-equal there.
 # ---------------------------------------------------------------------------
-def megakernel_unsupported_reason(bobj, bstrategy, dim: int,
-                                  opts: EngineOptions) -> Optional[str]:
-    """Why sweep_mode='megakernel' cannot serve this solve, or None if it
-    can. A reason sends run_multistart to the batched sweep, whose results
-    the megakernel's equal. Unlike the reference's gate there is no
-    rosenbrock rule: the port pads nothing."""
+def megakernel_unsupported_reason(bobj, bstrategy, dim: int, opts: EngineOptions,
+                                  dtype: torch.dtype = torch.float32) -> Optional[str]:
+    """Why sweep_mode='megakernel' cannot serve this solve in `dtype`, or
+    None if it can. A reason sends run_multistart to the batched sweep,
+    whose results the megakernel's equal. Unlike the reference's gate there
+    is no rosenbrock rule: the port pads nothing. The cap on D counts the
+    element size (ops.megakernel_max_dim: 3629 in float32, 1814 in float64
+    at K = 20)."""
     if analytic_fused_name(bobj) is None:
         return (
             f"objective {getattr(bobj, 'name', None)!r} has no analytic fused "
@@ -665,11 +667,11 @@ def megakernel_unsupported_reason(bobj, bstrategy, dim: int,
             "dense-H megakernel form (megakernel_dense_h)")
     if opts.ls_iters < 1:
         return "ls_iters < 1 leaves no ladder to fuse"
-    cap = kernel_ops.megakernel_max_dim(opts.ls_iters)
+    cap = kernel_ops.megakernel_max_dim(opts.ls_iters, dtype)
     if dim > cap:
         return (
             f"dim {dim} exceeds the cap of {cap} that the kernel's shared memory "
-            f"allows with a {opts.ls_iters}-rung ladder")
+            f"allows with a {opts.ls_iters}-rung ladder in {dtype}")
     return None
 
 
@@ -694,7 +696,9 @@ def megakernel_lanes_step(bobj, bstrategy: BatchedDirectionStrategy,
         # the staged ladder's own thresholds: the kernel makes its accepts
         alphas, rhs = ladder_thresholds(F, G, P, opts.ls_c1, K)
         X_new, F_new, G_new, state, P_next, _, rung = kernel_ops.sweep_megakernel_full(
-            name, X, P, G, H, active, rhs, alphas, exhaustion_alpha(K))
+            name, X, P, G, H, active, rhs, alphas,
+            exhaustion_alpha(K, dtype=np.float64 if X.dtype is torch.float64
+                             else np.float32))
         n_evals = K
     else:
         ls = armijo_backtracking_batch(
@@ -1522,7 +1526,7 @@ def _open(f, x0, strategy, opts: EngineOptions, device, retry_draws,
         bstrategy = as_batched_strategy(strategy)
         step_impl = batch_lanes_step
         if opts.sweep_mode == "megakernel":
-            reason = megakernel_unsupported_reason(bobj, bstrategy, D, opts)
+            reason = megakernel_unsupported_reason(bobj, bstrategy, D, opts, dtype)
             if reason is None:
                 step_impl = megakernel_lanes_step
             else:

@@ -35,7 +35,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch.func import vmap
 
-from repro_torch._device import resolve_device
+from repro_torch._device import check_dtype, resolve_device
 from repro_torch.core.pso import Draws, TorchDraws
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.meanfield_step import NOISE_MODES
@@ -95,7 +95,7 @@ def meanfield_step(f: Callable, state: MeanFieldState, opts: MeanFieldPSOOptions
     # reporting-only running min (masked against NaN escapes)
     inf = torch.tensor(float("inf"), dtype=fvals.dtype, device=fvals.device)
     gf = torch.minimum(state.gf, torch.min(torch.where(torch.isfinite(fvals), fvals, inf)))
-    xi = draws.normal(state.x.shape).to(state.x.device)
+    xi = draws.normal(state.x.shape).to(state.x.device, state.x.dtype)
     x, v = kernel_ops.meanfield_step_update(state.x, state.v, xbar, xi, opts.w,
                                             opts.drift, opts.sigma, opts.noise)
     if opts.clip_to_range:
@@ -104,13 +104,13 @@ def meanfield_step(f: Callable, state: MeanFieldState, opts: MeanFieldPSOOptions
 
 
 def init_meanfield(draws: Draws, n: int, dim: int, lower: float, upper: float,
-                   device) -> MeanFieldState:
-    """Uniform positions in [lower, upper], velocities in ±range, as the
-    paper swarm's init, minus the personal bests and the init objective
-    pass (the first step evaluates before it moves)."""
+                   device, dtype=torch.float32) -> MeanFieldState:
+    """Uniform positions in [lower, upper], velocities in ±range, in
+    `dtype`, as the paper swarm's init, minus the personal bests and the
+    init objective pass (the first step evaluates before it moves)."""
     vel_range = upper - lower
-    x = draws((n, dim), lower, upper).to(device)
-    v = draws((n, dim), -vel_range, vel_range).to(device)
+    x = draws((n, dim), lower, upper).to(device, dtype)
+    v = draws((n, dim), -vel_range, vel_range).to(device, dtype)
     return MeanFieldState(
         x=x, v=v, consensus=torch.zeros((dim,), dtype=x.dtype, device=x.device),
         gf=torch.tensor(float("inf"), dtype=x.dtype, device=x.device))
@@ -119,22 +119,26 @@ def init_meanfield(draws: Draws, n: int, dim: int, lower: float, upper: float,
 def run_meanfield_pso(f: Callable, dim: int, lower: float, upper: float,
                       opts: MeanFieldPSOOptions = MeanFieldPSOOptions(), *,
                       device="cuda", draws: Optional[Draws] = None,
-                      generator: Optional[torch.Generator] = None) -> MeanFieldState:
+                      generator: Optional[torch.Generator] = None,
+                      dtype: torch.dtype = torch.float32) -> MeanFieldState:
     """Phase 1 by mean-field consensus PSO: init + iter_pso iterations.
 
     f:      scalar objective `(dim,) -> ()` in torch, vmapped over the swarm.
     device: "cuda" (default) or "cpu"; no silent CPU fallback.
     draws:  the random-draw hook (core/pso.py), with `normal`; by default
-            TorchDraws(device, generator).
+            TorchDraws(device, generator, dtype=dtype).
+    dtype:  float32 or float64: the swarm's positions, velocities, noise
+            and consensus (and B6's w, λ and σ, rounded to it).
     Returns the final state: `.x` is the phase-2 start set, `.gf` the best
     value seen (inf when iter_pso=0)."""
     if opts.noise not in NOISE_MODES:
         raise ValueError(
             f"unknown noise mode {opts.noise!r}; expected one of {NOISE_MODES}")
     dev = resolve_device(device)
+    dtype = check_dtype(dtype)
     if draws is None:
-        draws = TorchDraws(dev, generator)
-    state = init_meanfield(draws, opts.n_particles, dim, lower, upper, dev)
+        draws = TorchDraws(dev, generator, dtype=dtype)
+    state = init_meanfield(draws, opts.n_particles, dim, lower, upper, dev, dtype)
     for _ in range(opts.iter_pso):
         state = meanfield_step(f, state, opts, lower, upper, draws)
     return state

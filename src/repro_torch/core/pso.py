@@ -169,7 +169,8 @@ def run_pso(f: Callable, dim: int, lower: float, upper: float,
 
 
 def sequential_pso(f: Callable, seed: int, dim: int, lower: float, upper: float,
-                   opts: PSOOptions, *, device="cuda") -> SwarmState:
+                   opts: PSOOptions, *, device="cuda",
+                   dtype: torch.dtype = torch.float32) -> SwarmState:
     """Algs. 2/3 run particle by particle on the host (the Fig. 2 baseline).
 
     The global best propagates within an iteration (particle i+1 sees
@@ -180,15 +181,18 @@ def sequential_pso(f: Callable, seed: int, dim: int, lower: float, upper: float,
           (`int(jax.random.randint(key, (), 0, 2**31 - 1))`); the numpy
           draws are then the reference's, in the same order.
     f:    scalar objective `(dim,) -> ()`, called one particle at a time on
-          a float32 tensor on `device` (the reference's positions are
-          float64 numpy that f sees as float32).
-    Returns the SwarmState as float32 tensors on `device`. clip_to_range is
-    a parallel-path knob and ignored, as in the reference."""
+          a tensor of `dtype` on `device` (the reference's positions are
+          float64 numpy that f sees in its array dtype: float32, or float64
+          under x64).
+    dtype: float32 or float64, the tensors f sees and the returned state's.
+    Returns the SwarmState as tensors of `dtype` on `device`. clip_to_range
+    is a parallel-path knob and ignored, as in the reference."""
     dev = resolve_device(device)
+    dtype = check_dtype(dtype)
     rng = np.random.default_rng(seed)
 
     def fval(xi):
-        return float(f(torch.as_tensor(xi, dtype=torch.float32, device=dev)))
+        return float(f(torch.as_tensor(xi, dtype=dtype, device=dev)))
 
     n = opts.n_particles
     vel_range = upper - lower
@@ -212,7 +216,7 @@ def sequential_pso(f: Callable, seed: int, dim: int, lower: float, upper: float,
                 gf, gx = fv, x[i].copy()
 
     def out(a):
-        return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
     return SwarmState(x=out(x), v=out(v), px=out(px), pf=out(pf), gx=out(gx),
                       gf=out(gf))

@@ -50,7 +50,8 @@ class ZeusOptions:
     phase1: str = "pso"
     meanfield: MeanFieldPSOOptions = MeanFieldPSOOptions()
     # "float32" or "float64" (phase 1 and phase 2 in that dtype; float64 runs
-    # PSO and dense BFGS on the batched sweep, the rest is ROADMAP A19b)
+    # either phase-1 strategy and dense BFGS in every sweep mode, the rest is
+    # ROADMAP A19b)
     dtype: str = "float32"
     solver: str = "bfgs"  # phase-2 strategy name in the engine registry
     lane_chunk: Optional[int] = None  # overrides the solver opts' lane_chunk
@@ -123,7 +124,7 @@ def run_phase1(f, dim, lower, upper, opts: ZeusOptions, draws: Draws, device):
                               device, dtype)
     if opts.phase1 == "meanfield":
         mf = run_meanfield_pso(f, dim, lower, upper, opts.meanfield,
-                               device=device, draws=draws)
+                               device=device, draws=draws, dtype=dtype)
         return mf.x, mf.gf
     swarm = run_pso(f, dim, lower, upper, opts.pso, device=device, draws=draws,
                     dtype=dtype)
@@ -233,7 +234,7 @@ def zeus(
                one) and `_RETRY_FOLD`."""
     dtype = check_dtype(opts.dtype)
     refuse_float64(dtype, phase2_setup(opts)[1], solver=_solver_name(opts),
-                   phase1=opts.phase1 if opts.use_pso else "pso", resume=resume)
+                   resume=resume)
     dev = resolve_device(device)
     if draws is None:
         draws = TorchDraws(dev, generator, dtype=dtype)
@@ -312,11 +313,12 @@ def sequential_zeus(f: Callable, seed: int, dim: int, lower: float, upper: float
         raise ValueError(
             "sequential_zeus is the paper's Alg. 1 baseline and only runs "
             f"phase1='pso'; use zeus() for phase1={opts.phase1!r}")
-    refuse_float64(opts.dtype, entry="sequential_zeus")
+    dtype = check_dtype(opts.dtype)
     dev = resolve_device(device)
     t0 = time.perf_counter()
     if opts.use_pso and opts.pso.iter_pso > 0:
-        swarm = sequential_pso(f, seed, dim, lower, upper, opts.pso, device=dev)
+        swarm = sequential_pso(f, seed, dim, lower, upper, opts.pso, device=dev,
+                               dtype=dtype)
         starts = swarm.x.cpu().numpy()
     else:
         rng = np.random.default_rng(seed)
@@ -329,7 +331,8 @@ def sequential_zeus(f: Callable, seed: int, dim: int, lower: float, upper: float
     n_started = n_failed = 0
     for x0 in starts:
         n_started += 1
-        r = serial_bfgs(f, np.asarray(x0, np.float32), opts.bfgs, device=dev)
+        r = serial_bfgs(f, torch.as_tensor(np.asarray(x0), dtype=dtype), opts.bfgs,
+                        device=dev)
         fv = float(r.fval)
         if not np.isfinite(fv):
             n_failed += 1

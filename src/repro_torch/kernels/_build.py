@@ -70,14 +70,24 @@ SIGNATURES = {
     "guarded_update_direction_launch" + F64: ("bfgs_update",
                                               [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
     "bfgs_update_launch": ("bfgs_update", [_P, _P, _P, _P, _I, _I, _P]),
+    "bfgs_update_launch" + F64: ("bfgs_update", [_P, _P, _P, _P, _I, _I, _P]),
     "update_direction_launch": ("bfgs_update",
                                 [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "update_direction_launch" + F64: ("bfgs_update",
+                                      [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
     "meanfield_step_launch": ("meanfield_step",
                               [_P, _P, _P, _P, _F, _F, _F, _I, _P, _P, _I, _I, _P]),
+    "meanfield_step_launch" + F64: ("meanfield_step",
+                                    [_P, _P, _P, _P, _D, _D, _D, _I, _P, _P, _I, _I, _P]),
     "sweep_megakernel_full_launch": (
         "sweep_megakernel",
         [_I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "sweep_megakernel_full_launch" + F64: (
+        "sweep_megakernel",
+        [_I, _P, _P, _P, _P, _P, _P, _P, _D, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "sweep_megakernel_commit_launch": (
+        "sweep_megakernel", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "sweep_megakernel_commit_launch" + F64: (
         "sweep_megakernel", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
     "flash_attention_launch": ("flash_attention",
                                [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]),

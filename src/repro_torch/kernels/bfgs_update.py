@@ -56,28 +56,29 @@ def update_direction_plain(H, dx, dg, g_new):
     return H_new, _direction(H_new, g_new)
 
 
-def _check(op, H, vectors, rho=None, dtype=torch.float32):
+def _check(op, H, vectors, rho=None):
+    """(B, D) of a call whose tensors are all contiguous CUDA tensors in H's
+    dtype; raise otherwise."""
     if H.dim() != 3 or H.shape[1] != H.shape[2]:
         raise ValueError(f"{op}: H must be (B, D, D), got {tuple(H.shape)}")
     B, D, _ = H.shape
-    _build.check_tensor(op, "H", H, (B, D, D), dtype=dtype)
+    _build.check_tensor(op, "H", H, (B, D, D), dtype=H.dtype)
     for arg, t in vectors:
-        _build.check_tensor(op, arg, t, (B, D), H.device, dtype)
+        _build.check_tensor(op, arg, t, (B, D), H.device, H.dtype)
     if rho is not None:
-        _build.check_tensor(op, "rho", rho, (B,), H.device, dtype)
+        _build.check_tensor(op, "rho", rho, (B,), H.device, H.dtype)
     return B, D
 
 
-# The CUDA kernels; same contracts as the plain versions, one launch a call.
-# The kernel picks its variant by D and the element size
-# (ops.update_variant: a warp per lane, H read once through shared memory,
-# or H streamed twice). H' is a new tensor. The guarded update (B2) takes
-# float32 or float64, the unguarded two (B7a, B7b) float32.
+# The CUDA kernels; same contracts as the plain versions, one launch a call,
+# float32 or float64 (every tensor in H's dtype). The kernel picks its
+# variant by D and the element size (ops.update_variant: a warp per lane, H
+# read once through shared memory, or H streamed twice). H' is a new tensor.
 def guarded_update_direction_cuda(H, dx, dg, g_new, rho):
     sym = _build.symbol("guarded_update_direction", "guarded_update_direction_launch",
                         H.dtype)
     B, D = _check("guarded_update_direction", H,
-                  (("dx", dx), ("dg", dg), ("g_new", g_new)), rho, H.dtype)
+                  (("dx", dx), ("dg", dg), ("g_new", g_new)), rho)
     H_new = torch.empty_like(H)
     p = H.new_empty(B, D)
     _build.launch(sym, H.data_ptr(), dx.data_ptr(),
@@ -87,18 +88,20 @@ def guarded_update_direction_cuda(H, dx, dg, g_new, rho):
 
 
 def bfgs_update_cuda(H, dx, dg):
+    sym = _build.symbol("bfgs_update", "bfgs_update_launch", H.dtype)
     B, D = _check("bfgs_update", H, (("dx", dx), ("dg", dg)))
     H_new = torch.empty_like(H)
-    _build.launch("bfgs_update_launch", H.data_ptr(), dx.data_ptr(), dg.data_ptr(),
+    _build.launch(sym, H.data_ptr(), dx.data_ptr(), dg.data_ptr(),
                   H_new.data_ptr(), B, D, _build.stream(H))
     return H_new
 
 
 def update_direction_cuda(H, dx, dg, g_new):
+    sym = _build.symbol("update_direction", "update_direction_launch", H.dtype)
     B, D = _check("update_direction", H, (("dx", dx), ("dg", dg), ("g_new", g_new)))
     H_new = torch.empty_like(H)
     p = H.new_empty(B, D)
-    _build.launch("update_direction_launch", H.data_ptr(), dx.data_ptr(),
+    _build.launch(sym, H.data_ptr(), dx.data_ptr(),
                   dg.data_ptr(), g_new.data_ptr(), H_new.data_ptr(), p.data_ptr(),
                   B, D, _build.stream(H))
     return H_new, p

@@ -47,7 +47,7 @@
 //     update;
 //   streaming above that: one block of eight warps per lane, block_hdg and
 //     block_update_rows reading H from device memory, 12·D² bytes a lane.
-// float64 (guarded_update_direction_launch_f64, B2 only): the kernel is a
+// float64 (the `_f64` launch functions of all three modes): the kernel is a
 // template on the element type, and the double instantiation runs the same
 // three variants on doubles: the small one unchanged in threads (its
 // shared arrays twice the bytes), the single read while (D² + 4·D)·8 + 128
@@ -306,7 +306,8 @@ int launch(UpdateArgs<T> a, cudaStream_t stream) {
 
 }  // namespace
 
-// All take H (B, D, D) and dx/dg (B, D); float32, contiguous.
+// All take H (B, D, D) and dx/dg (B, D); float32 (float64 for `_f64`),
+// contiguous.
 // Guarded: g_new (B, D), rho (B,) -> H_out (B, D, D), p_out (B, D).
 extern "C" int guarded_update_direction_launch(const float* H, const float* dx,
                                                const float* dg, const float* g_new,
@@ -317,8 +318,7 @@ extern "C" int guarded_update_direction_launch(const float* H, const float* dx,
       UpdateArgs<float>{H, dx, dg, g_new, rho, H_out, p_out, B, D, 0}, stream);
 }
 
-// The guarded update in float64 (B2's double instantiation); the unguarded
-// two stay float32.
+// The guarded update in float64 (B2's double instantiation).
 extern "C" int guarded_update_direction_launch_f64(const double* H, const double* dx,
                                                    const double* dg, const double* g_new,
                                                    const double* rho, double* H_out,
@@ -341,4 +341,19 @@ extern "C" int update_direction_launch(const float* H, const float* dx, const fl
                                        int B, int D, cudaStream_t stream) {
   return launch<kUpdateDirection>(
       UpdateArgs<float>{H, dx, dg, g_new, nullptr, H_out, p_out, B, D, 0}, stream);
+}
+
+// The unguarded two in float64 (B7a's and B7b's double instantiations).
+extern "C" int bfgs_update_launch_f64(const double* H, const double* dx, const double* dg,
+                                      double* H_out, int B, int D, cudaStream_t stream) {
+  return launch<kUpdate>(
+      UpdateArgs<double>{H, dx, dg, nullptr, nullptr, H_out, nullptr, B, D, 0}, stream);
+}
+
+extern "C" int update_direction_launch_f64(const double* H, const double* dx,
+                                           const double* dg, const double* g_new,
+                                           double* H_out, double* p_out, int B, int D,
+                                           cudaStream_t stream) {
+  return launch<kUpdateDirection>(
+      UpdateArgs<double>{H, dx, dg, g_new, nullptr, H_out, p_out, B, D, 0}, stream);
 }

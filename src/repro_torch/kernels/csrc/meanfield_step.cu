@@ -26,8 +26,11 @@
 // The expressions keep the reference's association and the file is built
 // with -fmad=false, so the anisotropic result matches the plain PyTorch
 // version bit for bit, and the isotropic one up to the order of its row
-// sum.
-#include "common.cuh"
+// sum. One template serves float32 and float64 (meanfield_step_launch_f64):
+// the double instantiation takes w, λ and σ as doubles and the row norm's
+// square root in double (objective.cuh's Real<T>), as the reference's x64
+// swarm does.
+#include "objective.cuh"
 
 namespace {
 
@@ -36,27 +39,27 @@ using repro::kWarp;
 
 constexpr int kThreads = 256;
 
+template <typename T>
 __global__ void meanfield_anisotropic_kernel(
-    const float* __restrict__ x, const float* __restrict__ v,
-    const float* __restrict__ xbar, const float* __restrict__ xi, float w, float drift,
-    float sigma, float* __restrict__ x_out, float* __restrict__ v_out, long long n,
-    int D) {
+    const T* __restrict__ x, const T* __restrict__ v, const T* __restrict__ xbar,
+    const T* __restrict__ xi, T w, T drift, T sigma, T* __restrict__ x_out,
+    T* __restrict__ v_out, long long n, int D) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const float xi_ = x[i];
-    const float d = xbar[i % D] - xi_;
-    const float vn = w * v[i] + drift * d + sigma * d * xi[i];
+    const T xi_ = x[i];
+    const T d = xbar[i % D] - xi_;
+    const T vn = w * v[i] + drift * d + sigma * d * xi[i];
     v_out[i] = vn;
     x_out[i] = xi_ + vn;
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads) meanfield_isotropic_kernel(
-    const float* __restrict__ x, const float* __restrict__ v,
-    const float* __restrict__ xbar, const float* __restrict__ xi, float w, float drift,
-    float sigma, float* __restrict__ x_out, float* __restrict__ v_out, long long N, int D,
-    int G) {
+    const T* __restrict__ x, const T* __restrict__ v, const T* __restrict__ xbar,
+    const T* __restrict__ xi, T w, T drift, T sigma, T* __restrict__ x_out,
+    T* __restrict__ v_out, long long N, int D, int G) {
   const int rows_per_block = kThreads / G;
   const int g = threadIdx.x % G;
   const long long row =
@@ -64,23 +67,44 @@ __global__ void __launch_bounds__(kThreads) meanfield_isotropic_kernel(
   // rows past N still join the shuffles, with nothing to add
   const bool live = row < N;
   const long long base = row * D;
-  float acc = 0.0f;
+  T acc = T(0);
   if (live) {
     for (int j = g; j < D; j += G) {
-      const float d = xbar[j] - x[base + j];
+      const T d = xbar[j] - x[base + j];
       acc += d * d;
     }
   }
-  const float scale = sigma * sqrtf(group_sum(acc, G));
+  const T scale = sigma * repro::Real<T>::sqrt(group_sum(acc, G));
   if (!live) return;
   for (int j = g; j < D; j += G) {
     const long long i = base + j;
-    const float xv = x[i];
-    const float d = xbar[j] - xv;
-    const float vn = w * v[i] + drift * d + scale * xi[i];
+    const T xv = x[i];
+    const T d = xbar[j] - xv;
+    const T vn = w * v[i] + drift * d + scale * xi[i];
     v_out[i] = vn;
     x_out[i] = xv + vn;
   }
+}
+
+template <typename T>
+int launch(const T* x, const T* v, const T* xbar, const T* xi, T w, T drift, T sigma,
+           int isotropic, T* x_out, T* v_out, int N, int D, cudaStream_t stream) {
+  const long long n = static_cast<long long>(N) * D;
+  if (n <= 0) return 0;
+  if (isotropic) {
+    int G = 1;
+    while (G < D && G < kWarp) G <<= 1;
+    const int rows_per_block = kThreads / G;
+    const long long blocks = (static_cast<long long>(N) + rows_per_block - 1) / rows_per_block;
+    meanfield_isotropic_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        x, v, xbar, xi, w, drift, sigma, x_out, v_out, N, D, G);
+  } else {
+    long long blocks = (n + kThreads - 1) / kThreads;
+    if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride beyond ~64 blocks per SM
+    meanfield_anisotropic_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        x, v, xbar, xi, w, drift, sigma, x_out, v_out, n, D);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -91,20 +115,16 @@ extern "C" int meanfield_step_launch(const float* x, const float* v, const float
                                      const float* xi, float w, float drift, float sigma,
                                      int isotropic, float* x_out, float* v_out, int N,
                                      int D, cudaStream_t stream) {
-  const long long n = static_cast<long long>(N) * D;
-  if (n <= 0) return 0;
-  if (isotropic) {
-    int G = 1;
-    while (G < D && G < kWarp) G <<= 1;
-    const int rows_per_block = kThreads / G;
-    const long long blocks = (static_cast<long long>(N) + rows_per_block - 1) / rows_per_block;
-    meanfield_isotropic_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        x, v, xbar, xi, w, drift, sigma, x_out, v_out, N, D, G);
-  } else {
-    long long blocks = (n + kThreads - 1) / kThreads;
-    if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride beyond ~64 blocks per SM
-    meanfield_anisotropic_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        x, v, xbar, xi, w, drift, sigma, x_out, v_out, n, D);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(x, v, xbar, xi, w, drift, sigma, isotropic, x_out, v_out, N, D,
+                       stream);
+}
+
+// The same in float64, with w, drift and sigma as doubles.
+extern "C" int meanfield_step_launch_f64(const double* x, const double* v,
+                                         const double* xbar, const double* xi, double w,
+                                         double drift, double sigma, int isotropic,
+                                         double* x_out, double* v_out, int N, int D,
+                                         cudaStream_t stream) {
+  return launch<double>(x, v, xbar, xi, w, drift, sigma, isotropic, x_out, v_out, N, D,
+                        stream);
 }

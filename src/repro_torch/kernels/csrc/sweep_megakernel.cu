@@ -43,23 +43,37 @@
 // fallback):
 //   - single read, while H fits in the block's shared memory beside the
 //     vectors, (D² + 16·D + K)·4 + 64 <= 232,448 bytes for B5 (D <= 233 at
-//     K = 20) and (D² + 8·D)·4 + 64 <= 232,448 for B5b (D <= 237);
-//     ops.megakernel_smem_dim states the same rule. The block starts the
-//     copy of its lane's H (D²·4 contiguous bytes) into shared memory at the
-//     top, before stages 1–3: one bulk copy on an mbarrier where the lane's H
-//     is 16-byte aligned (D even and an aligned base), else 4-byte cp.async.
+//     K = 20) and (D² + 8·D)·4 + 64 <= 232,448 for B5b (D <= 237) in
+//     float32; ops.megakernel_smem_dim states the same rule. The block starts
+//     the copy of its lane's H (D² contiguous elements) into shared memory at
+//     the top, before stages 1–3: one bulk copy on an mbarrier where the
+//     lane's H is 16-byte aligned (D even and an aligned base), else
+//     element-wide cp.async.
 //     The trial fan and its values read only shared memory, so they hide
 //     the copy; the update waits for it and runs block_hdg and
 //     block_update_rows on the shared-memory H. H is read from device
 //     memory once: 8·D² bytes a lane, the bound.
 //   - two streaming passes above that: block_hdg and block_update_rows read
 //     H from device memory, 12·D² bytes a lane.
-// H' is written by coalesced 4-byte warp stores (lane j of a row writes
-// column j, j + 32, …), the order of update.cuh.
-// Shared memory per block: the single-read variant's H (D² floats) first,
-// then x, p, g, x', g', δx, δg, u (8·D floats) and, for B5, eight trial
-// rows (8·D) and the K trial values: (16·D + K)·4 bytes beside H. ops.py
-// derives the largest D that fits in the 227 KB a block may have.
+// H' is written by coalesced warp stores (lane j of a row writes column j,
+// j + 32, …), the order of update.cuh.
+// Shared memory per block: the single-read variant's H (D² elements) first,
+// then x, p, g, x', g', δx, δg, u (8·D) and, for B5, eight trial rows (8·D)
+// and the K trial values: (16·D + K) elements beside H. ops.py derives the
+// largest D that fits in the 227 KB a block may have.
+//
+// float64 (the `_f64` launch functions): the kernel is a template on the
+// element type T, and every shared body it calls (objective.cuh's row_value
+// and grad_row, update.cuh's passes) is the one the double B1a/B1b and B2
+// run, so the contract holds in double as in float: rung, α, x', f' and g'
+// bitwise the staged float64 path's, H' and p' B2's but through δxᵀδg.
+// Every byte rule counts sizeof(T): the single read runs while
+// (D² + 16·D + K)·8 + 64 <= 232,448 (D <= 162 at K = 20) for B5 and
+// (D² + 8·D)·8 + 64 for B5b (D <= 166); H comes in by one bulk copy where
+// the lane's H is 16-byte aligned (D even and an aligned base), else by
+// 8-byte cp.async. The curvature guard compares against the double 1e-10
+// in double (engine._CURV_EPS, which the staged path's torch comparison
+// rounds to the tensor's type), never the float 1e-10f widened.
 #include "hopper.cuh"
 #include "objective.cuh"
 #include "update.cuh"
@@ -73,53 +87,70 @@ using repro::kSphere;
 using repro::kWarp;
 
 constexpr int kWarps = 8;
-constexpr float kCurvEps = 1e-10f;  // engine._CURV_EPS
 constexpr long long kSmemPerBlock = 232448;  // the H100's opt-in shared memory a block
 constexpr long long kSmemScalars = 64;       // the kernel's static __shared__ scalars
 
+// engine._CURV_EPS in the element type: the staged path compares δxᵀδg with
+// the Python constant, which torch rounds to the tensor's type
+template <typename T>
+struct CurvEps;
+template <>
+struct CurvEps<float> {
+  static constexpr float value = 1e-10f;
+};
+template <>
+struct CurvEps<double> {
+  static constexpr double value = 1e-10;
+};
+
 // One launch's arguments; the pointers of stages 1-3 (rhs, alphas,
 // alpha_out, rung_out) are unused by B5b, alpha_in by B5.
+template <typename T>
 struct SweepArgs {
-  const float* x;
-  const float* p;
-  const float* g;
-  const float* H;
+  const T* x;
+  const T* p;
+  const T* g;
+  const T* H;
   const unsigned char* active;
-  const float* rhs;
-  const float* alphas;
-  float exhaust_alpha;
-  const float* alpha_in;
-  float* x_out;
-  float* f_out;
-  float* g_out;
-  float* H_out;
-  float* p_out;
-  float* alpha_out;
+  const T* rhs;
+  const T* alphas;
+  T exhaust_alpha;
+  const T* alpha_in;
+  T* x_out;
+  T* f_out;
+  T* g_out;
+  T* H_out;
+  T* p_out;
+  T* alpha_out;
   int* rung_out;
   int B, D, K;
   int bulk;  // single-read variant: 1 to copy H with one bulk copy, 0 with cp.async
 };
 
-// whether a lane's H fits in the block's shared memory beside the vectors
-// (ops.megakernel_smem_dim: the largest such D)
+// whether a lane's H fits in the block's shared memory beside the vectors,
+// in elements of T (ops.megakernel_smem_dim: the largest such D)
+template <typename T>
 __host__ __device__ constexpr bool h_fits_smem(long long D, long long K, bool full) {
-  return (D * D + (full ? 16 * D + K : 8 * D)) * 4 + kSmemScalars <= kSmemPerBlock;
+  return (D * D + (full ? 16 * D + K : 8 * D)) * static_cast<long long>(sizeof(T)) +
+             kSmemScalars <=
+         kSmemPerBlock;
 }
 
-template <int OBJ, bool FULL, bool SMEM_H>
-__global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a) {
+template <typename T, int OBJ, bool FULL, bool SMEM_H>
+__global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs<T> a) {
   const int D = a.D;
-  extern __shared__ __align__(16) float smem[];
-  float* sH = smem;  // the lane's H, single-read variant only
-  float* sx = SMEM_H ? smem + D * D : smem;
-  float* sp = sx + D;
-  float* sg = sp + D;
-  float* sxn = sg + D;
-  float* sgn = sxn + D;
-  float* sdx = sgn + D;
-  float* sdg = sdx + D;
-  float* su = sdg + D;
-  __shared__ float s_alpha, s_e1, s_s1, s_e2, s_curv, s_dot;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  T* sH = smem;  // the lane's H, single-read variant only
+  T* sx = SMEM_H ? smem + D * D : smem;
+  T* sp = sx + D;
+  T* sg = sp + D;
+  T* sxn = sg + D;
+  T* sgn = sxn + D;
+  T* sdx = sgn + D;
+  T* sdg = sdx + D;
+  T* su = sdg + D;
+  __shared__ T s_alpha, s_e1, s_s1, s_e2, s_curv, s_dot;
   __shared__ __align__(8) uint64_t s_h_full;
 
   const long long b = blockIdx.x;
@@ -127,8 +158,8 @@ __global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a
   const int warp = threadIdx.x / kWarp;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
-  const float* Hb = a.H + b * D * D;
-  const float alpha_in = FULL ? 0.0f : a.alpha_in[b];  // loads issued up front
+  const T* Hb = a.H + b * D * D;
+  const T alpha_in = FULL ? T(0) : a.alpha_in[b];  // loads issued up front
   const bool active = a.active[b] != 0;
 
   if (SMEM_H) {  // start reading H now; stages 1-4 before the update hide it
@@ -136,12 +167,18 @@ __global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a
       if (tid == 0) {
         repro::mbar_init(&s_h_full, 1);
         repro::mbar_fence_init();
-        const uint32_t bytes = static_cast<uint32_t>(D) * D * 4;
+        const uint32_t bytes = static_cast<uint32_t>(D) * D * static_cast<uint32_t>(sizeof(T));
         repro::mbar_arrive_expect_tx(&s_h_full, bytes);
         repro::bulk_load(sH, Hb, bytes, &s_h_full);
       }
     } else {
-      for (int j = tid; j < D * D; j += nthreads) repro::cp_async_4(sH + j, Hb + j);
+      for (int j = tid; j < D * D; j += nthreads) {
+        if constexpr (sizeof(T) == 8) {
+          repro::cp_async_8(sH + j, Hb + j);
+        } else {
+          repro::cp_async_4(sH + j, Hb + j);
+        }
+      }
       repro::cp_async_commit();
     }
   }
@@ -156,18 +193,18 @@ __global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a
   if (FULL) {
     // stages 1-2: warp w evaluates rungs w, w + kWarps, … in its own row and
     // holds each value against its threshold, loaded ahead of the row's work
-    // (the same fp32 comparison as the staged accept); sF[k] = 1 where rung
+    // (the same comparison in T as the staged accept); sF[k] = 1 where rung
     // k is accepted (a NaN value or threshold accepts nothing)
-    float* trial = su + D + warp * D;
-    float* sF = su + D + kWarps * D;
+    T* trial = su + D + warp * D;
+    T* sF = su + D + kWarps * D;
     for (int k = warp; k < a.K; k += kWarps) {
-      const float alpha_k = a.alphas[k];
-      const float rhs_k = a.rhs[static_cast<long long>(k) * a.B + b];
+      const T alpha_k = a.alphas[k];
+      const T rhs_k = a.rhs[static_cast<long long>(k) * a.B + b];
       for (int j = lane; j < D; j += kWarp) trial[j] = sx[j] + alpha_k * sp[j];
       __syncwarp();
-      float e1 = 0.0f, s1 = 0.0f, e2 = 0.0f;
-      const float fk = repro::row_value<OBJ, kWarp>(trial, D, lane, &e1, &s1, &e2);
-      if (lane == 0) sF[k] = fk <= rhs_k ? 1.0f : 0.0f;
+      T e1 = T(0), s1 = T(0), e2 = T(0);
+      const T fk = repro::row_value<OBJ, kWarp>(trial, D, lane, &e1, &s1, &e2);
+      if (lane == 0) sF[k] = fk <= rhs_k ? T(1) : T(0);
       __syncwarp();  // every lane has read the row before the next rung
     }
     __syncthreads();
@@ -175,7 +212,7 @@ __global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a
     if (tid == 0) {
       int rung = a.K;
       for (int k = 0; k < a.K; ++k) {
-        if (sF[k] != 0.0f) {
+        if (sF[k] != T(0)) {
           rung = k;
           break;
         }
@@ -186,18 +223,18 @@ __global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a
     }
     __syncthreads();
   }
-  const float alpha = FULL ? s_alpha : alpha_in;
+  const T alpha = FULL ? s_alpha : alpha_in;
 
   // stage 4: x' = x + α·p, then f and ∇f there
   for (int j = tid; j < D; j += nthreads) {
-    const float xn = sx[j] + alpha * sp[j];
+    const T xn = sx[j] + alpha * sp[j];
     sxn[j] = xn;
     a.x_out[b * D + j] = xn;
   }
   __syncthreads();
   if (warp == 0) {
-    float e1 = 0.0f, s1 = 0.0f, e2 = 0.0f;
-    const float fv = repro::row_value<OBJ, kWarp>(sxn, D, lane, &e1, &s1, &e2);
+    T e1 = T(0), s1 = T(0), e2 = T(0);
+    const T fv = repro::row_value<OBJ, kWarp>(sxn, D, lane, &e1, &s1, &e2);
     if (lane == 0) {
       a.f_out[b] = fv;
       s_e1 = e1;
@@ -217,24 +254,24 @@ __global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a
 
   // the curvature guard on the lane's D, then the sanitised pair
   if (warp == 0) {
-    const float c = repro::warp_dot(sdx, sdg, D, lane);
+    const T c = repro::warp_dot(sdx, sdg, D, lane);
     if (lane == 0) s_curv = c;
   }
   __syncthreads();
-  const float curv = s_curv;
-  const bool ok = active && isfinite(curv) && curv > kCurvEps;
-  const float rho = ok ? 1.0f / curv : 0.0f;
+  const T curv = s_curv;
+  const bool ok = active && isfinite(curv) && curv > CurvEps<T>::value;
+  const T rho = ok ? T(1) / curv : T(0);
   if (!ok) {  // uniform over the block
     for (int j = tid; j < D; j += nthreads) {
-      sdx[j] = 0.0f;
-      sdg[j] = 0.0f;
+      sdx[j] = T(0);
+      sdg[j] = T(0);
     }
   }
   __syncthreads();
 
   // the guarded update: B2's passes, over the shared-memory copy of H or
   // streaming it from device memory twice
-  const float* Hs = Hb;
+  const T* Hs = Hb;
   if (SMEM_H) {
     if (a.bulk) {
       repro::mbar_wait(&s_h_full, 0);
@@ -250,29 +287,29 @@ __global__ void __launch_bounds__(kWarps * kWarp) sweep_kernel(const SweepArgs a
   repro::block_hdg<kRows>(Hs, sdg, su, D, warp, lane, kWarps);
   __syncthreads();
   if (warp == 0) {
-    const float s = repro::warp_dot(sdg, su, D, lane);
+    const T s = repro::warp_dot(sdg, su, D, lane);
     if (lane == 0) s_dot = s;
   }
   __syncthreads();
-  const float coef = rho * rho * s_dot + rho;
+  const T coef = rho * rho * s_dot + rho;
   repro::block_update_rows<true, kRows>(Hs, a.H_out + b * D * D, su, sdx, sgn, rho, coef,
-                                 a.p_out + b * D, D, warp, lane, kWarps);
+                                        a.p_out + b * D, D, warp, lane, kWarps);
 }
 
-template <bool FULL, bool SMEM_H>
-int launch_variant(int objective, const SweepArgs& a, cudaStream_t stream) {
-  void (*kernel)(const SweepArgs);
+template <typename T, bool FULL, bool SMEM_H>
+int launch_variant(int objective, const SweepArgs<T>& a, cudaStream_t stream) {
+  void (*kernel)(const SweepArgs<T>);
   switch (objective) {
-    case kSphere: kernel = sweep_kernel<kSphere, FULL, SMEM_H>; break;
-    case kRastrigin: kernel = sweep_kernel<kRastrigin, FULL, SMEM_H>; break;
-    case kRosenbrock: kernel = sweep_kernel<kRosenbrock, FULL, SMEM_H>; break;
-    case kAckley: kernel = sweep_kernel<kAckley, FULL, SMEM_H>; break;
+    case kSphere: kernel = sweep_kernel<T, kSphere, FULL, SMEM_H>; break;
+    case kRastrigin: kernel = sweep_kernel<T, kRastrigin, FULL, SMEM_H>; break;
+    case kRosenbrock: kernel = sweep_kernel<T, kRosenbrock, FULL, SMEM_H>; break;
+    case kAckley: kernel = sweep_kernel<T, kAckley, FULL, SMEM_H>; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t floats = (SMEM_H ? static_cast<size_t>(a.D) * a.D : 0) +
-                        (FULL ? 16 * static_cast<size_t>(a.D) + a.K
-                              : 8 * static_cast<size_t>(a.D));
-  const size_t smem = floats * sizeof(float);
+  const size_t elems = (SMEM_H ? static_cast<size_t>(a.D) * a.D : 0) +
+                       (FULL ? 16 * static_cast<size_t>(a.D) + a.K
+                             : 8 * static_cast<size_t>(a.D));
+  const size_t smem = elems * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -282,12 +319,16 @@ int launch_variant(int objective, const SweepArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool FULL>
-int launch(int objective, SweepArgs a, cudaStream_t stream) {
+template <bool FULL, typename T>
+int launch(int objective, SweepArgs<T> a, cudaStream_t stream) {
   if (a.B <= 0 || a.D <= 0) return 0;
-  if (!h_fits_smem(a.D, a.K, FULL)) return launch_variant<FULL, false>(objective, a, stream);
+  if (!h_fits_smem<T>(a.D, a.K, FULL)) {
+    return launch_variant<T, FULL, false>(objective, a, stream);
+  }
+  // every lane's H starts on a 16-byte boundary: D²·sizeof(T) a multiple of
+  // 16 (D even) and an aligned base
   a.bulk = a.D % 2 == 0 && reinterpret_cast<uintptr_t>(a.H) % 16 == 0;
-  return launch_variant<FULL, true>(objective, a, stream);
+  return launch_variant<T, FULL, true>(objective, a, stream);
 }
 
 }  // namespace
@@ -302,8 +343,22 @@ extern "C" int sweep_megakernel_full_launch(
     float* p_out, float* alpha_out, int* rung_out, int B, int D, int K,
     cudaStream_t stream) {
   if (K <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const SweepArgs a{x, p, g, H, active, rhs, alphas, exhaust_alpha, nullptr, x_out,
-                    f_out, g_out, H_out, p_out, alpha_out, rung_out, B, D, K, 0};
+  const SweepArgs<float> a{x, p, g, H, active, rhs, alphas, exhaust_alpha, nullptr, x_out,
+                           f_out, g_out, H_out, p_out, alpha_out, rung_out, B, D, K, 0};
+  return launch<true>(objective, a, stream);
+}
+
+// B5 in float64: every array of the float32 launch (but active and rung_out)
+// in double, and exhaust_alpha a double.
+extern "C" int sweep_megakernel_full_launch_f64(
+    int objective, const double* x, const double* p, const double* g, const double* H,
+    const unsigned char* active, const double* rhs, const double* alphas,
+    double exhaust_alpha, double* x_out, double* f_out, double* g_out, double* H_out,
+    double* p_out, double* alpha_out, int* rung_out, int B, int D, int K,
+    cudaStream_t stream) {
+  if (K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const SweepArgs<double> a{x, p, g, H, active, rhs, alphas, exhaust_alpha, nullptr, x_out,
+                            f_out, g_out, H_out, p_out, alpha_out, rung_out, B, D, K, 0};
   return launch<true>(objective, a, stream);
 }
 
@@ -313,7 +368,17 @@ extern "C" int sweep_megakernel_commit_launch(
     int objective, const float* x, const float* p, const float* g, const float* H,
     const unsigned char* active, const float* alpha, float* x_out, float* f_out,
     float* g_out, float* H_out, float* p_out, int B, int D, cudaStream_t stream) {
-  const SweepArgs a{x, p, g, H, active, nullptr, nullptr, 0.0f, alpha, x_out,
-                    f_out, g_out, H_out, p_out, nullptr, nullptr, B, D, 0, 0};
+  const SweepArgs<float> a{x, p, g, H, active, nullptr, nullptr, 0.0f, alpha, x_out,
+                           f_out, g_out, H_out, p_out, nullptr, nullptr, B, D, 0, 0};
+  return launch<false>(objective, a, stream);
+}
+
+// B5b in float64.
+extern "C" int sweep_megakernel_commit_launch_f64(
+    int objective, const double* x, const double* p, const double* g, const double* H,
+    const unsigned char* active, const double* alpha, double* x_out, double* f_out,
+    double* g_out, double* H_out, double* p_out, int B, int D, cudaStream_t stream) {
+  const SweepArgs<double> a{x, p, g, H, active, nullptr, nullptr, 0.0, alpha, x_out,
+                            f_out, g_out, H_out, p_out, nullptr, nullptr, B, D, 0, 0};
   return launch<false>(objective, a, stream);
 }

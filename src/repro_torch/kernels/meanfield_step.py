@@ -36,18 +36,20 @@ def meanfield_step_plain(x, v, xbar, xi, w, drift, sigma, noise="anisotropic"):
 
 
 def meanfield_step_cuda(x, v, xbar, xi, w, drift, sigma, noise="anisotropic"):
-    """The CUDA kernel; same contract as meanfield_step_plain, float32 on
-    the card."""
+    """The CUDA kernel; same contract as meanfield_step_plain, float32 or
+    float64 on the card (every tensor in x's dtype; w, drift and sigma
+    rounded to it)."""
     _check_noise(noise)
     if x.dim() != 2:
         raise ValueError(f"meanfield_step: x must be (N, D), got {tuple(x.shape)}")
     N, D = x.shape
+    sym = _build.symbol("meanfield_step", "meanfield_step_launch", x.dtype)
     for arg, t in (("x", x), ("v", v), ("xi", xi)):
-        _build.check_tensor("meanfield_step", arg, t, (N, D), x.device)
-    _build.check_tensor("meanfield_step", "xbar", xbar, (D,), x.device)
+        _build.check_tensor("meanfield_step", arg, t, (N, D), x.device, x.dtype)
+    _build.check_tensor("meanfield_step", "xbar", xbar, (D,), x.device, x.dtype)
     x_new = torch.empty_like(x)
     v_new = torch.empty_like(x)
-    _build.launch("meanfield_step_launch", x.data_ptr(), v.data_ptr(),
+    _build.launch(sym, x.data_ptr(), v.data_ptr(),
                   xbar.data_ptr(), xi.data_ptr(), float(w), float(drift),
                   float(sigma), int(noise == "isotropic"), x_new.data_ptr(),
                   v_new.data_ptr(), N, D, _build.stream(x))

@@ -9,8 +9,9 @@ JAX ops pad D to the TPU's 128-lane tile, which these kernels do not need.
 Each op carries a plain integer counter, `<op>.launches`, that it raises by
 one where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels. The ops with a float64 kernel
-(FLOAT64_OPS: B1a, B1b, B2, B3, B4) count their float64 launches apart, in
-`<op>.launches_f64`, which `launch_counts()` reports as `<op>_f64`.
+(FLOAT64_OPS: every ZEUS kernel, B1a to B7b) count their float64 launches
+apart, in `<op>.launches_f64`, which `launch_counts()` reports as
+`<op>_f64`.
 """
 from __future__ import annotations
 
@@ -155,7 +156,7 @@ def bfgs_update(H, dx, dg):
     if _on_cpu(H):
         return _bfgs_update.bfgs_update_plain(H, dx, dg)
     out = _bfgs_update.bfgs_update_cuda(H, dx, dg)
-    bfgs_update.launches += 1
+    _launched(bfgs_update, H)
     return out
 
 
@@ -164,7 +165,7 @@ def bfgs_update_direction(H, dx, dg, g_new):
     if _on_cpu(H):
         return _bfgs_update.update_direction_plain(H, dx, dg, g_new)
     out = _bfgs_update.update_direction_cuda(H, dx, dg, g_new)
-    bfgs_update_direction.launches += 1
+    _launched(bfgs_update_direction, H)
     return out
 
 
@@ -193,7 +194,7 @@ def meanfield_step_update(x, v, xbar, xi, w, drift, sigma, noise="anisotropic"):
         return meanfield_step.meanfield_step_plain(x, v, xbar, xi, w, drift, sigma,
                                                    noise)
     out = meanfield_step.meanfield_step_cuda(x, v, xbar, xi, w, drift, sigma, noise)
-    meanfield_step_update.launches += 1
+    _launched(meanfield_step_update, x)
     return out
 
 
@@ -201,32 +202,36 @@ def meanfield_step_update(x, v, xbar, xi, w, drift, sigma, noise="anisotropic"):
 # Shared-memory cap of the sweep megakernel on the H100. A block may use
 # 232,448 bytes (227 KB) of shared memory. The kernel keeps eight D-vectors
 # (x, p, g, x', g', δx, δg, u) and, for the full sweep, eight trial rows of D
-# and the K trial values in it, (16·D + K)·4 bytes, beside a few scalars
-# (under 64 bytes). So the largest D for a K-rung ladder is
-# (232448 − 64) / 4 − K, over 16: 3629 at the paper's K = 20. A constant of
-# the card, not a device query, so the CPU and the card route alike.
+# and the K trial values in it, (16·D + K) elements, beside a few scalars
+# (under 64 bytes). So the largest D for a K-rung ladder with elements of s
+# bytes is ((232448 − 64) / s − K) / 16: 3629 in float32 and 1814 in
+# float64 at the paper's K = 20. A constant of the card, not a device query,
+# so the CPU and the card route alike.
 SMEM_PER_BLOCK = 232_448
 _SMEM_SCALARS = 64
 
 
-def megakernel_max_dim(K: int) -> int:
-    """The largest D the sweep megakernel takes with a K-rung ladder."""
-    return ((SMEM_PER_BLOCK - _SMEM_SCALARS) // 4 - K) // 16
+def megakernel_max_dim(K: int, dtype=torch.float32) -> int:
+    """The largest D the sweep megakernel takes with a K-rung ladder, for
+    elements of `dtype` (float32 unless given)."""
+    return ((SMEM_PER_BLOCK - _SMEM_SCALARS) // _itemsize(dtype) - K) // 16
 
 
 MEGAKERNEL_MAX_DIM = megakernel_max_dim(20)
 
 
-def megakernel_smem_dim(K: int, full: bool = True) -> int:
+def megakernel_smem_dim(K: int, full: bool = True, dtype=torch.float32) -> int:
     """The largest D at which the sweep megakernel reads each lane's H from
-    device memory once: its D² floats fit in shared memory beside the
-    vectors, (D² + 16·D + K)·4 + 64 <= 232,448 bytes for the full sweep (B5,
-    233 at K = 20) and (D² + 8·D)·4 + 64 for the commit (B5b, full=False,
-    237; K unused). Above it the kernel streams H twice. The kernel's launch
-    applies the same rule (csrc/sweep_megakernel.cu, h_fits_smem)."""
+    device memory once: its D² elements of s bytes fit in shared memory
+    beside the vectors, (D² + 16·D + K)·s + 64 <= 232,448 bytes for the full
+    sweep (B5: 233 in float32, 162 in float64 at K = 20) and (D² + 8·D)·s +
+    64 for the commit (B5b, full=False: 237 and 166; K unused). Above it the
+    kernel streams H twice. The kernel's launch applies the same rule
+    (csrc/sweep_megakernel.cu, h_fits_smem)."""
+    size = _itemsize(dtype)
     vectors = (lambda D: 16 * D + K) if full else (lambda D: 8 * D)
-    D = math.isqrt((SMEM_PER_BLOCK - _SMEM_SCALARS) // 4)
-    while D > 0 and (D * D + vectors(D)) * 4 + _SMEM_SCALARS > SMEM_PER_BLOCK:
+    D = math.isqrt((SMEM_PER_BLOCK - _SMEM_SCALARS) // size)
+    while D > 0 and (D * D + vectors(D)) * size + _SMEM_SCALARS > SMEM_PER_BLOCK:
         D -= 1
     return D
 
@@ -277,7 +282,7 @@ def sweep_megakernel_full(name, X, P, G, H, active, rhs, alphas, exhaust_alpha):
 
     X/P/G (B, D), H (B, D, D), active (B,) bool, rhs (K, B) the Armijo
     thresholds (core/linesearch.armijo_thresholds), alphas (K,) the ladder
-    on X's device and exhaust_alpha the float32 α_{K−1}·shrink (the
+    on X's device and exhaust_alpha α_{K−1}·shrink rounded in X's dtype (the
     reference takes the numpy ladder instead). Returns
     (x', f', g', H', p', α, rung)."""
     if _on_cpu(X):
@@ -285,7 +290,7 @@ def sweep_megakernel_full(name, X, P, G, H, active, rhs, alphas, exhaust_alpha):
                                                   exhaust_alpha)
     out = _sweep.sweep_megakernel_full_cuda(name, X, P, G, H, active, rhs, alphas,
                                             exhaust_alpha)
-    sweep_megakernel_full.launches += 1
+    _launched(sweep_megakernel_full, X)
     return out
 
 
@@ -295,7 +300,7 @@ def sweep_megakernel_commit(name, X, P, G, H, active, alpha):
     if _on_cpu(X):
         return _sweep.sweep_megakernel_commit_plain(name, X, P, G, H, active, alpha)
     out = _sweep.sweep_megakernel_commit_cuda(name, X, P, G, H, active, alpha)
-    sweep_megakernel_commit.launches += 1
+    _launched(sweep_megakernel_commit, X)
     return out
 
 
@@ -315,10 +320,11 @@ KERNEL_OPS = (fused_value, fused_value_grad, guarded_update_direction,
               bfgs_update, bfgs_update_direction, direction, pso_step_update,
               meanfield_step_update, sweep_megakernel_full, sweep_megakernel_commit,
               flash_attention)
-# the ops whose kernels have a float64 instantiation (the batched dense-BFGS
-# path: B1a, B1b, B2, B3, B4)
-FLOAT64_OPS = (fused_value, fused_value_grad, guarded_update_direction, direction,
-               pso_step_update)
+# the ops whose kernels have a float64 instantiation: every ZEUS kernel (B8
+# serves the LM path in bf16 and float32)
+FLOAT64_OPS = (fused_value, fused_value_grad, guarded_update_direction, bfgs_update,
+               bfgs_update_direction, direction, pso_step_update, meanfield_step_update,
+               sweep_megakernel_full, sweep_megakernel_commit)
 
 
 def reset_launch_counts() -> None:

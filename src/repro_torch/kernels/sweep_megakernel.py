@@ -62,8 +62,9 @@ def sweep_megakernel_commit_plain(name, X, P, G, H, active, alpha):
 
 def sweep_megakernel_full_plain(name, X, P, G, H, active, rhs, alphas, exhaust_alpha):
     """X/P/G (B, D), H (B, D, D), active (B,) bool, rhs (K, B) thresholds,
-    alphas (K,) the ladder on X's device, exhaust_alpha the float32 constant
-    α_{K−1}·shrink -> (x', f', g', H', p', α (B,), rung (B,) int32)."""
+    alphas (K,) the ladder on X's device, exhaust_alpha the constant
+    α_{K−1}·shrink rounded in X's dtype -> (x', f', g', H', p', α (B,),
+    rung (B,) int32)."""
     K, B = rhs.shape
     D = X.shape[1]
     trials = X[None] + alphas[:, None, None] * P[None]  # (K, B, D)
@@ -80,10 +81,10 @@ def _check(op, name, X, P, G, H, active):
     if X.dim() != 2:
         raise ValueError(f"{op}: X must be (B, D), got {tuple(X.shape)}")
     B, D = X.shape
-    _build.check_tensor(op, "X", X, (B, D))
+    _build.check_tensor(op, "X", X, (B, D), dtype=X.dtype)
     for arg, t in (("P", P), ("G", G)):
-        _build.check_tensor(op, arg, t, (B, D), X.device)
-    _build.check_tensor(op, "H", H, (B, D, D), X.device)
+        _build.check_tensor(op, arg, t, (B, D), X.device, X.dtype)
+    _build.check_tensor(op, "H", H, (B, D, D), X.device, X.dtype)
     _build.check_tensor(op, "active", active, (B,), X.device, dtype=torch.bool)
     return B, D
 
@@ -94,20 +95,22 @@ def _outputs(X, H):
             torch.empty_like(X), torch.empty_like(H), torch.empty_like(X))
 
 
-# The CUDA kernels; same contracts as the plain versions, float32 on the
-# card (active bool). H' is a new tensor.
+# The CUDA kernels; same contracts as the plain versions, float32 or float64
+# on the card (every floating tensor in X's dtype, active bool). H' is a new
+# tensor.
 def sweep_megakernel_full_cuda(name, X, P, G, H, active, rhs, alphas, exhaust_alpha):
     op = "sweep_megakernel_full"
+    sym = _build.symbol(op, "sweep_megakernel_full_launch", X.dtype)
     B, D = _check(op, name, X, P, G, H, active)
     K = rhs.shape[0] if rhs.dim() == 2 else -1
     if K < 1:
         raise ValueError(f"{op}: rhs must be (K, B) with K >= 1, got {tuple(rhs.shape)}")
-    _build.check_tensor(op, "rhs", rhs, (K, B), X.device)
-    _build.check_tensor(op, "alphas", alphas, (K,), X.device)
+    _build.check_tensor(op, "rhs", rhs, (K, B), X.device, X.dtype)
+    _build.check_tensor(op, "alphas", alphas, (K,), X.device, X.dtype)
     x_new, f_new, g_new, H_new, p_new = outs = _outputs(X, H)
     alpha = X.new_empty(B)
     rung = X.new_empty(B, dtype=torch.int32)
-    _build.launch("sweep_megakernel_full_launch", _KERNEL_ID[name], X.data_ptr(),
+    _build.launch(sym, _KERNEL_ID[name], X.data_ptr(),
                   P.data_ptr(), G.data_ptr(), H.data_ptr(), active.data_ptr(),
                   rhs.data_ptr(), alphas.data_ptr(), float(exhaust_alpha),
                   *(t.data_ptr() for t in outs), alpha.data_ptr(), rung.data_ptr(),
@@ -117,10 +120,11 @@ def sweep_megakernel_full_cuda(name, X, P, G, H, active, rhs, alphas, exhaust_al
 
 def sweep_megakernel_commit_cuda(name, X, P, G, H, active, alpha):
     op = "sweep_megakernel_commit"
+    sym = _build.symbol(op, "sweep_megakernel_commit_launch", X.dtype)
     B, D = _check(op, name, X, P, G, H, active)
-    _build.check_tensor(op, "alpha", alpha, (B,), X.device)
+    _build.check_tensor(op, "alpha", alpha, (B,), X.device, X.dtype)
     outs = _outputs(X, H)
-    _build.launch("sweep_megakernel_commit_launch", _KERNEL_ID[name], X.data_ptr(),
+    _build.launch(sym, _KERNEL_ID[name], X.data_ptr(),
                   P.data_ptr(), G.data_ptr(), H.data_ptr(), active.data_ptr(),
                   alpha.data_ptr(), *(t.data_ptr() for t in outs), B, D,
                   _build.stream(X))

@@ -23,8 +23,8 @@ inputs are float64 numpy arrays from `np.random.default_rng(seed)`.
 - The dijet fit: simulated counts equal, the NLL and its forward-mode
   gradient within 1e-12 of the magnitude of their summed terms, and a
   small float64 fit that meets examples/fit_dijet.py's two criteria.
-- Refusals: every path float64 does not run yet raises NotImplementedError
-  naming A19b on the CPU, before anything runs.
+- Refusals: every path float64 does not run yet (ROADMAP A19b-2) raises
+  NotImplementedError naming A19b on the CPU, before anything runs.
 """
 import numpy as np
 import pytest
@@ -50,18 +50,15 @@ from repro_torch.core import (  # noqa: E402
     BatchedDenseBFGS,
     BFGSOptions,
     EngineOptions,
-    MeanFieldPSOOptions,
     PSOOptions,
     ZeusOptions,
     get_objective,
     open_multistart,
     run_multistart,
-    sequential_zeus,
     zeus,
 )
 from repro_torch.core import dual as pdual  # noqa: E402
 from repro_torch.core import engine, objectives  # noqa: E402
-from repro_torch.core.bfgs import serial_bfgs  # noqa: E402
 from repro_torch.core.linesearch import armijo_thresholds, ladder_alphas  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import fused_obj  # noqa: E402
@@ -229,9 +226,9 @@ def test_direction_and_pso_step_plain_match_pallas_in_float64():
 
 def test_kernel_thresholds_and_symbols_in_float64():
     """The variant edges halve their D in float64 (16 KB tiles of 2048
-    doubles; a 16-byte pad of 2 doubles), and each CUDA wrapper takes
-    float32 or float64 where its kernel has a double instantiation, float32
-    alone elsewhere (B7a/B7b), and nothing else."""
+    doubles; a 16-byte pad of 2 doubles; the megakernel's shared memory),
+    and every ZEUS kernel's CUDA wrapper takes float32 or float64, and
+    nothing else."""
     assert ops.fused_obj_staged_max_dim(F64) == 907
     assert ops.fused_obj_staged_max_dim() == 1815
     assert ops.update_smem_dim(F64) == 168 and ops.update_smem_dim() == 239
@@ -243,15 +240,23 @@ def test_kernel_thresholds_and_symbols_in_float64():
         rows = ops.fused_obj_tile_rows(d, F64)
         assert rows == min(64, max(16, 2048 // d // 16 * 16))
         assert ops.fused_obj_ring_bytes(d, rows, 2, F64) == 2 * (rows * d + 2) * 8 + 64
+    assert ops.megakernel_max_dim(20, F64) == 1814 and ops.megakernel_max_dim(20) == 3629
+    assert (ops.megakernel_smem_dim(20, True, F64), ops.megakernel_smem_dim(20, False, F64),
+            ops.megakernel_smem_dim(20), ops.megakernel_smem_dim(20, False)) == (
+                162, 166, 233, 237)
     for name in ("fused_obj_launch", "direction_launch", "pso_step_launch",
-                 "guarded_update_direction_launch"):
+                 "guarded_update_direction_launch", "bfgs_update_launch",
+                 "update_direction_launch", "meanfield_step_launch",
+                 "sweep_megakernel_full_launch", "sweep_megakernel_commit_launch"):
         assert _build.symbol("op", name, torch.float32) == name
         assert _build.symbol("op", name, F64) == name + "_f64"
         with pytest.raises(TypeError, match="float32 or float64"):
             _build.symbol("op", name, torch.float16)
     with pytest.raises(TypeError, match="takes float32"):
-        _build.symbol("bfgs_update", "bfgs_update_launch", F64)
+        _build.symbol("flash_attention", "flash_attention_launch", F64)
     assert set(ops.launch_counts()) >= {f"{op.__name__}_f64" for op in ops.FLOAT64_OPS}
+    assert ops.flash_attention not in ops.FLOAT64_OPS
+    assert len(ops.FLOAT64_OPS) == len(ops.KERNEL_OPS) - 1
 
 
 # ---------------------------------------------------------------------------
@@ -431,7 +436,7 @@ def test_dijet_fit_in_float64_meets_the_examples_criteria(counts64):
 
 
 # ---------------------------------------------------------------------------
-# Refusals: every path float64 does not run yet (ROADMAP A19b)
+# Refusals: every path float64 does not run yet (ROADMAP A19b-2)
 # ---------------------------------------------------------------------------
 def _zeus64(**kw):
     obj = get_objective("sphere")
@@ -446,27 +451,17 @@ def _engine64(**kw):
 
 
 REFUSED = {
-    "megakernel": lambda: _zeus64(sweep_mode="megakernel"),
-    "per_lane": lambda: _zeus64(sweep_mode="per_lane"),
     "lbfgs": lambda: _zeus64(solver="lbfgs"),
-    "meanfield": lambda: _zeus64(phase1="meanfield",
-                                 meanfield=MeanFieldPSOOptions(n_particles=8, iter_pso=1)),
-    "ladder_len": lambda: _zeus64(ladder_len=4),
+    "lbfgs-per_lane": lambda: _zeus64(solver="lbfgs", sweep_mode="per_lane"),
     "compact_every": lambda: _zeus64(compact_every=1),
     "repack_every": lambda: _zeus64(repack_every=1, lane_chunk=4),
     "schedule-auto": lambda: _zeus64(schedule="auto"),
+    "schedule-replay": lambda: _zeus64(schedule="replay", schedule_plans=(0,)),
     "retry": lambda: _zeus64(retry_budget=1),
     "fault_plan": lambda: _zeus64(fault_plan=FaultPlan(preempt_at_sweep=3)),
     "checkpoint": lambda: _zeus64(checkpoint_every=2, checkpoint_dir="unused"),
     "resume": lambda: _zeus64_resume(),
-    "engine-megakernel": lambda: _engine64(sweep_mode="megakernel"),
     "engine-compact": lambda: _engine64(compact_every=1),
-    "sequential_zeus": lambda: sequential_zeus(
-        get_objective("sphere").fn, 0, 2, -1.0, 1.0,
-        ZeusOptions(pso=PSOOptions(n_particles=4, iter_pso=1), dtype="float64"),
-        device="cpu"),
-    "serial_bfgs": lambda: serial_bfgs(get_objective("sphere").fn,
-                                       torch.zeros(2, dtype=F64), device="cpu"),
     "open_multistart": lambda: open_multistart(
         get_objective("sphere").fn, torch.zeros((4, 2), dtype=F64), BatchedDenseBFGS(),
         EngineOptions(lane_deadlines=True), device="cpu"),
